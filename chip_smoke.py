@@ -1,0 +1,285 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with an NVIDIA H100 and the CUDA
+toolkit (`nvcc`).  It builds the port's kernels from `macsa_tpu_torch/csrc`,
+holds each kernel against its plain PyTorch version at the serving shapes,
+then runs `make_finetune_eval_step` at the full width of the FCMF model
+(ViSoBERT-sized 12-layer text encoder at L=170, ResNet-152 over 7 images
+and 28 ROI crops per sample, batch 8, random weights from a seed) and
+checks that it went through both kernels.  Each phase prints one line; any
+failure raises and the exit code is not 0.  The second-to-last line lists
+the kernels as JSON; the last line is the run's JSON verdict.  Without a
+CUDA device it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+BATCH, NUM_ASPECTS, ITERS = 8, 6, 5
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of `fn` over `iters` back-to-back launches."""
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def f32_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Every element of `got` within one float32 ulp of `want`."""
+    ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"), device=want.device)) - want.abs()
+    return bool(((got - want).abs() <= ulp).all())
+
+
+def phase_k2(dev, image_prep):
+    """K2 against its plain version on serving-shaped pixel batches."""
+    g = torch.Generator(dev).manual_seed(0)
+    size = 224
+    raw = torch.randint(0, 256, (BATCH, 7, size, size, 3), dtype=torch.uint8,
+                        device=dev, generator=g)
+    roi_raw = torch.randint(0, 256, (BATCH, 7, 4, size, size, 3), dtype=torch.uint8,
+                            device=dev, generator=g)
+
+    def pack(pixels, valid):
+        words = pixels.reshape(pixels.shape[:-3] + (-1,)).view(torch.int32)
+        return torch.cat([valid.to(torch.int32)[..., None], words], dim=-1).contiguous()
+
+    img_valid = torch.ones(BATCH, 7, dtype=torch.bool, device=dev)
+    img_valid[0, 6] = img_valid[-1, 2] = False
+    roi_valid = torch.rand(BATCH, 7, 4, device=dev, generator=g) > 0.25
+    cases = {
+        "packed_images": (image_prep.unpack_normalize_pixels,
+                          image_prep.unpack_normalize_pixels_reference,
+                          pack(raw, img_valid), img_valid),
+        "packed_rois": (image_prep.unpack_normalize_pixels,
+                        image_prep.unpack_normalize_pixels_reference,
+                        pack(roi_raw, roi_valid), roi_valid),
+        "raw_u8_images": (image_prep.normalize_images_u8,
+                          image_prep.normalize_images_u8_reference, raw, None),
+    }
+    assert cases["packed_rois"][2].shape == (BATCH, 7, 4, 37633)
+    report = {}
+    for name, (kernel, plain, x, valid) in cases.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            got, want = kernel(x, dtype), plain(x, dtype)
+            torch.cuda.synchronize()
+            if valid is not None and got[~valid].abs().max().item() != 0.0:
+                raise AssertionError(f"K2 {name}: invalid frames are not exact zeros")
+            err = (got.float() - want.float()).abs().max().item()
+            ok = f32_ulp_ok(got, want) if dtype == torch.float32 else torch.equal(got, want)
+            if not ok:
+                raise AssertionError(f"K2 {name} {dtype}: kernel disagrees with plain "
+                                     f"(max abs err {err})")
+            ms = cuda_ms(lambda: kernel(x, dtype))
+            plain_ms = cuda_ms(lambda: plain(x, dtype))
+            report[(name, dtype)] = (err, ms, plain_ms)
+            print(f"phase k2 {name} {str(dtype)[6:]} {tuple(x.shape)}: max_abs_err={err:.3g} "
+                  f"(f32 <= 1 ulp, bf16 equal) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+    return report
+
+
+def phase_k1(dev, fa):
+    """K1 against its plain version at the text encoder's serving shape."""
+    g = torch.Generator(dev).manual_seed(1)
+    b, l, h, d = BATCH * NUM_ASPECTS, 170, 12, 64
+    lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
+    lens[:8] = l  # some views fill the whole window
+    pad = torch.arange(l, device=dev)[None, :] >= lens[:, None]
+    q, k, v = (torch.randn(b, l, h * d, device=dev, generator=g) for _ in range(3))
+    # f32: summation order only; bf16: the plain version rounds the scores
+    # to bf16 (they leave the matmul in the operand dtype), the kernel keeps f32
+    tolerance = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    report = {}
+    for neg_name, neg in (("-10000", -10000.0), ("finfo.min", torch.finfo(torch.float32).min)):
+        mask = torch.zeros(b, l, device=dev).masked_fill(pad, neg)
+        for dtype, atol in tolerance.items():
+            qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
+            got = fa.fused_self_attention(qc, kc, vc, mask, h)
+            want = fa.attention_reference(qc, kc, vc, mask, h)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not err <= atol:
+                raise AssertionError(f"K1 {dtype} mask {neg_name}: max abs err {err} > {atol}")
+            ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h))
+            plain_ms = cuda_ms(lambda: fa.attention_reference(qc, kc, vc, mask, h))
+            report[(neg_name, dtype)] = (err, ms, plain_ms)
+            print(f"phase k1 {str(dtype)[6:]} mask {neg_name} [{b},{l},{h * d}] h={h}: "
+                  f"max_abs_err={err:.3g} (atol {atol}) kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f}")
+    return report
+
+
+def serving_batch(dev, cfg):
+    """Loader-shaped batch of 8 samples, made on the card from a seed."""
+    g = torch.Generator(dev).manual_seed(2)
+    size, wpf = 224, 1 + 224 * 224 * 3 // 4
+    l, a = cfg.max_text_len, NUM_ASPECTS
+
+    def frames(lead, p_valid):
+        pixels = torch.randint(0, 256, lead + (size * size * 3,), dtype=torch.uint8,
+                               device=dev, generator=g)
+        valid = torch.rand(lead, device=dev, generator=g) < p_valid
+        return torch.cat([valid.to(torch.int32)[..., None], pixels.view(torch.int32)], -1)
+
+    lens = torch.randint(24, l + 1, (BATCH, a), device=dev, generator=g)
+    pad = torch.arange(l, device=dev) >= lens[..., None]
+    ids = torch.randint(2, cfg.text.vocab_size, (BATCH, a, l), device=dev, generator=g)
+    batch = {
+        "images": frames((BATCH, cfg.num_imgs), 0.9),
+        "roi_images": frames((BATCH, cfg.num_imgs, cfg.num_roi), 0.75),
+        "roi_coors": torch.rand(BATCH, cfg.num_imgs, cfg.num_roi, 4, device=dev,
+                                generator=g),
+        "input_ids": ids.masked_fill(pad, cfg.text.pad_token_id).to(torch.int32),
+        "token_type_ids": torch.zeros(BATCH, a, l, dtype=torch.int32, device=dev),
+        "attention_mask": (~pad).to(torch.int32),
+        "added_mask": torch.ones(BATCH, a, l + cfg.num_patches, dtype=torch.int32,
+                                 device=dev),
+    }
+    assert batch["images"].shape[-1] == wpf
+    return batch
+
+
+def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep):
+    """The serving forward at full width, through both kernels."""
+    def build(dtype: str, fused: bool):
+        cfg = config.FCMFConfig(model=config.ModelConfig(dtype=dtype, fused_attention=fused),
+                                text=config.TextEncoderConfig(dtype=dtype,
+                                                              fused_attention=fused))
+        return (cfg, fcmf.FCMF(cfg, device=dev),
+                resnet.VisualFeatures(config.ResNetConfig(dtype=dtype), device=dev))
+
+    cfg, model32, visual32 = build("float32", True)
+    layers.init_weights(model32, torch.Generator(dev).manual_seed(3),
+                        cfg.model.initializer_range)
+    layers.init_weights(visual32, torch.Generator(dev).manual_seed(4))
+    _, model16, visual16 = build("bfloat16", True)
+    _, plain32, _ = build("float32", False)
+    for m, src in ((model16, model32), (visual16, visual32), (plain32, model32)):
+        m.load_state_dict(src.state_dict(), strict=True)
+    batch = serving_batch(dev, cfg)
+    pairs = BATCH * cfg.num_imgs
+
+    def drive(step):
+        preds, logits = step(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ITERS):
+            preds, logits = step(batch)
+        torch.cuda.synchronize()
+        return preds, logits, (time.perf_counter() - t0) * 1e3 / ITERS
+
+    # the main path: every count from 0, read right after
+    cuda_lib.reset_launch_counts()
+    preds32, logits32, ms32 = drive(steps.make_finetune_eval_step(model32, visual32))
+    preds16, logits16, ms16 = drive(steps.make_finetune_eval_step(model16, visual16))
+    launches = dict(cuda_lib.launch_counts)
+    forwards = 2 * (ITERS + 1)
+    want = {"fused_self_attention": cfg.text.num_hidden_layers * forwards,
+            "device_normalize": 2 * forwards}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    for name, logits in (("f32", logits32), ("bf16", logits16)):
+        if logits.shape != (BATCH, NUM_ASPECTS, cfg.num_labels) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{name} logits {tuple(logits.shape)} not finite/shaped")
+
+    # the same weights on the plain path: attention without K1, pixels
+    # normalized by K2's plain version (a float batch only casts)
+    plain_batch = dict(batch)
+    for key in ("images", "roi_images"):
+        plain_batch[key] = image_prep.unpack_normalize_pixels_reference(
+            batch[key], torch.float32)
+    preds_p, logits_p = steps.make_finetune_eval_step(plain32, visual32)(plain_batch)
+    torch.cuda.synchronize()
+    if cuda_lib.launch_counts != launches:
+        raise AssertionError("the plain path launched a kernel")
+    err = (logits32 - logits_p).abs().max().item()
+    if not err <= 1e-3 or not torch.equal(preds32, preds_p):
+        raise AssertionError(f"kernel vs plain path: logits max abs err {err} "
+                             f"(atol 1e-3), preds equal: {torch.equal(preds32, preds_p)}")
+    bf16_gap = (logits16 - logits32).abs().max().item()
+    agree = (preds16 == preds32).float().mean().item()
+    print(f"phase slice f32: logits {tuple(logits32.shape)} finite; kernel vs plain path "
+          f"max_abs_err={err:.3g} (atol 1e-3, TF32 off), preds equal; "
+          f"{ms32:.2f} ms/forward, {pairs * 1e3 / ms32:.1f} pairs/s on {card}")
+    print(f"phase slice bf16: logits finite; max |bf16 - f32| = {bf16_gap:.3g}, "
+          f"pred agreement {agree:.3f}; {ms16:.2f} ms/forward, "
+          f"{pairs * 1e3 / ms16:.1f} pairs/s on {card}")
+    print(f"phase slice launches over {forwards} forwards: {launches}")
+    return launches
+
+
+def main() -> int:
+    sys.path.insert(0, REPO)
+    from macsa_tpu_torch import config
+    from macsa_tpu_torch.models import fcmf, layers, resnet
+    from macsa_tpu_torch.ops import cuda_lib, image_prep
+    from macsa_tpu_torch.ops import fused_attention as fa
+    from macsa_tpu_torch.train import steps
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # f32 means f32: no TF32 in cuBLAS or cuDNN
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(f"phase device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(smi)
+
+    t0 = time.perf_counter()
+    lib = cuda_lib.library()
+    print(f"phase build: {time.perf_counter() - t0:.1f} s ({lib._name})")
+
+    k2 = phase_k2(dev, image_prep)
+    k1 = phase_k1(dev, fa)
+    launches = phase_slice(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
+                           image_prep)
+
+    k1_err = max(e for e, _, _ in k1.values())
+    k2_err = max(e for e, _, _ in k2.values())
+    _, k1_ms, k1_plain = k1[("-10000", torch.bfloat16)]
+    _, k2_ms, k2_plain = k2[("packed_rois", torch.bfloat16)]
+    kernels = [
+        {"name": "fused_self_attention", "route": "cuda",
+         "source": "macsa_tpu_torch/csrc/fused_attention.cu",
+         "replaces": "macsa_tpu/ops/fused_attention.py:92",
+         "launches": launches["fused_self_attention"], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "device_normalize", "route": "cuda",
+         "source": "macsa_tpu_torch/csrc/image_prep.cu",
+         "replaces": "macsa_tpu/ops/image_prep.py:36",
+         "launches": launches["device_normalize"], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain},
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

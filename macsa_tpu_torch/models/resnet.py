@@ -1,0 +1,170 @@
+"""ResNet-152 visual feature extractor in PyTorch (frozen BatchNorm).
+
+Counterpart of `macsa_tpu/models/resnet.py` (reference:
+fcmf_framework/resnet_utils.py): `grid_features` returns the 7x7x2048
+attention grid and `pooled_features` the spatially averaged 2048-d vector.
+
+* Key names are torchvision's (`conv1`, `bn1.running_mean`,
+  `layerN.i.downsample.{0,1}`), so `macsa_tpu.models.resnet.
+  import_torchvision_resnet` consumes the state dict with nothing left over.
+* BatchNorm is frozen (eval-mode statistics held as buffers) and applied
+  as a per-channel affine computed in f32, then cast to the conv dtype.
+* Public functions take the JAX layout `[..., H, W, 3]`.  Inside, the
+  tensors are NCHW in `torch.channels_last` memory format: the same bytes
+  as NHWC, so the permutes in and out copy nothing.  The convolutions go
+  to cuDNN (on the CPU, oneDNN) through `F.conv2d`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from macsa_tpu_torch.config import ResNetConfig
+
+# ImageNet normalization used by every dataset path (vimacsa_dataset.py:25-30)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+class FrozenBatchNorm(nn.Module):
+    """Eval-mode BatchNorm as a per-channel affine with imported stats."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.eps = eps
+        self.compute_dtype = compute_dtype
+        self.register_buffer("weight", torch.ones(features, device=device))
+        self.register_buffer("bias", torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+
+    def init_weights_(self, generator: torch.Generator, std: float) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        inv = torch.rsqrt(self.running_var + self.eps)
+        mul = (self.weight * inv).to(self.compute_dtype)
+        add = (self.bias - self.running_mean * self.weight * inv).to(self.compute_dtype)
+        return x * mul.view(1, -1, 1, 1) + add.view(1, -1, 1, 1)
+
+
+class Conv2d(nn.Module):
+    """Bias-free square convolution with an f32 weight kept channels-last,
+    computed in `compute_dtype`; padding is kernel // 2 as in the JAX model."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        self.stride, self.padding = stride, kernel // 2
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.empty(
+            out_ch, in_ch, kernel, kernel, device=device
+        ).contiguous(memory_format=torch.channels_last))
+
+    def init_weights_(self, generator: torch.Generator, std: float) -> None:
+        # LeCun normal over the fan-in, flax's default conv init
+        fan_in = self.weight[0].numel()
+        self.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight.to(self.compute_dtype), stride=self.stride,
+                        padding=self.padding)
+
+
+class Bottleneck(nn.Module):
+    """torchvision-style bottleneck (stride on the 3x3 conv)."""
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1,
+                 downsample: bool = False,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        dt, out_ch = compute_dtype, features * 4
+        self.conv1 = Conv2d(in_ch, features, 1, compute_dtype=dt, device=device)
+        self.bn1 = FrozenBatchNorm(features, compute_dtype=dt, device=device)
+        self.conv2 = Conv2d(features, features, 3, stride, compute_dtype=dt, device=device)
+        self.bn2 = FrozenBatchNorm(features, compute_dtype=dt, device=device)
+        self.conv3 = Conv2d(features, out_ch, 1, compute_dtype=dt, device=device)
+        self.bn3 = FrozenBatchNorm(out_ch, compute_dtype=dt, device=device)
+        self.downsample = (nn.Sequential(
+            Conv2d(in_ch, out_ch, 1, stride, compute_dtype=dt, device=device),
+            FrozenBatchNorm(out_ch, compute_dtype=dt, device=device))
+            if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return F.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """torchvision-compatible ResNet backbone up to layer4 (no fc)."""
+
+    def __init__(self, config: ResNetConfig = ResNetConfig(), device=None):
+        super().__init__()
+        self.config = config
+        dt, nf = config.torch_dtype, config.num_filters
+        self.conv1 = Conv2d(3, nf, 7, 2, compute_dtype=dt, device=device)
+        self.bn1 = FrozenBatchNorm(nf, compute_dtype=dt, device=device)
+        in_ch = nf
+        for stage, num_blocks in enumerate(config.stage_sizes):
+            features = nf * 2 ** stage
+            blocks = []
+            for block in range(num_blocks):
+                stride = 2 if (stage > 0 and block == 0) else 1
+                blocks.append(Bottleneck(in_ch, features, stride, downsample=block == 0,
+                                         compute_dtype=dt, device=device))
+                in_ch = features * 4
+            self.add_module(f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.num_stages = len(config.stage_sizes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: [N, 3, H, W] normalized (channels-last) -> [N, C, H/32, W/32]."""
+        x = x.to(self.config.torch_dtype)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        for stage in range(self.num_stages):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        return x
+
+
+class VisualFeatures(ResNet):
+    """Grid (7x7x2048) and pooled (2048) feature heads over the ResNet.
+
+    Folds any leading sample/image axes into the batch before the conv
+    stack.  It IS the backbone (not a wrapper around one), so its state
+    dict carries torchvision's top-level names."""
+
+    def _run(self, images: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+        """[..., H, W, 3] -> (NHWC features [N, h, w, C], leading shape)."""
+        lead = tuple(images.shape[:-3])
+        flat = images.reshape((-1,) + tuple(images.shape[-3:]))
+        feat = self(flat.permute(0, 3, 1, 2))  # channels-last NCHW view
+        return feat.permute(0, 2, 3, 1), lead
+
+    def grid_features(self, images: torch.Tensor) -> torch.Tensor:
+        """[..., H, W, 3] -> [..., grid*grid, C] (adaptive average pool,
+        resnet_utils.py:24; the identity at 224 -> 7x7)."""
+        att = self.config.grid_size
+        feat, lead = self._run(images)
+        n, h, w, c = feat.shape
+        if (h, w) != (att, att):
+            if h % att or w % att:
+                raise ValueError(f"feature map {h}x{w} does not pool to {att}x{att}")
+            feat = feat.reshape(n, att, h // att, att, w // att, c).mean(dim=(2, 4))
+        return feat.reshape(lead + (att * att, c))
+
+    def pooled_features(self, images: torch.Tensor) -> torch.Tensor:
+        """[..., H, W, 3] -> [..., C] spatial mean (resnet_utils.py:50)."""
+        feat, lead = self._run(images)
+        return feat.mean(dim=(1, 2)).reshape(lead + (feat.shape[-1],))

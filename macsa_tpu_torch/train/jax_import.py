@@ -1,0 +1,160 @@
+"""Carry the JAX package's parameters into the port's modules.
+
+The port's modules use the reference checkpoint's names, so the JAX
+package's own importers (`macsa_tpu.train.torch_import.
+import_fcmf_classifier`, `macsa_tpu.models.resnet.import_torchvision_resnet`)
+read a port `state_dict()` directly.  This module is their inverse: JAX
+parameter trees, given as numpy (or numpy-convertible) arrays, become
+state dicts of torch tensors for `load_state_dict(strict=True)`.
+
+Dense kernels are flax [in, out] and torch [out, in]; conv kernels are flax
+[kh, kw, in, out] and torch [out, in, kh, kw]; LayerNorm `scale` is torch
+`weight`.  Only the unrolled text-encoder layout (`layer_{i}`) is read.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _prefixed(prefix: str, sd: StateDict) -> StateDict:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def dense_state_dict(p) -> StateDict:
+    out = {"weight": _t(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def layer_norm_state_dict(p) -> StateDict:
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def bert_block_state_dict(p) -> StateDict:
+    """One BertLayer / BertCrossAttentionLayer (flax `attention` + `mlp`)."""
+    att, mlp = p["attention"], p["mlp"]
+    sd: StateDict = {}
+    for name in ("query", "key", "value"):
+        sd.update(_prefixed(f"attention.self.{name}", dense_state_dict(att["self"][name])))
+    sd.update(_prefixed("attention.output.dense", dense_state_dict(att["output"]["dense"])))
+    sd.update(_prefixed("attention.output.LayerNorm",
+                        layer_norm_state_dict(att["output"]["LayerNorm"])))
+    sd.update(_prefixed("intermediate.dense", dense_state_dict(mlp["intermediate_dense"])))
+    sd.update(_prefixed("output.dense", dense_state_dict(mlp["output_dense"])))
+    sd.update(_prefixed("output.LayerNorm", layer_norm_state_dict(mlp["output_LayerNorm"])))
+    return sd
+
+
+def text_encoder_state_dict_from_jax(p, num_layers: int) -> StateDict:
+    """TextEncoder params -> HF RoBERTa keys (inverse of
+    `macsa_tpu.models.text_encoder.import_hf_text_encoder`)."""
+    if "layers" in p:
+        raise ValueError("scanned (stacked) text-encoder params: unstack them first")
+    emb = p["embeddings"]
+    sd: StateDict = {f"embeddings.{name}.weight": _t(emb[name]["embedding"])
+                     for name in ("word_embeddings", "position_embeddings",
+                                  "token_type_embeddings")}
+    sd.update(_prefixed("embeddings.LayerNorm", layer_norm_state_dict(emb["LayerNorm"])))
+    for i in range(num_layers):
+        sd.update(_prefixed(f"encoder.layer.{i}", bert_block_state_dict(p[f"layer_{i}"])))
+    sd.update(_prefixed("pooler.dense", dense_state_dict(p["pooler"]["dense"])))
+    return sd
+
+
+def box_head_state_dict(p) -> StateDict:
+    """BoxMultiHeadedAttention params -> `linears.{0..3}`, `WGs.{h}`."""
+    sd: StateDict = {}
+    for i, name in enumerate(("q_proj", "k_proj", "v_proj", "out_proj")):
+        sd.update(_prefixed(f"linears.{i}", dense_state_dict(p[name])))
+    kernel = np.asarray(p["wg"]["kernel"])  # [64, heads]
+    bias = np.asarray(p["wg"]["bias"])
+    for h in range(kernel.shape[1]):
+        sd[f"WGs.{h}.weight"] = _t(kernel[:, h][None, :])
+        sd[f"WGs.{h}.bias"] = _t(bias[h:h + 1])
+    return sd
+
+
+def fcmf_state_dict_from_jax(params, num_text_layers: int) -> StateDict:
+    """FCMF classifier params -> reference-named state dict (inverse of
+    `macsa_tpu.train.torch_import.import_fcmf_classifier`)."""
+    enc = params["encoder"]
+    sd = _prefixed("encoder.bert.cell",
+                   text_encoder_state_dict_from_jax(enc["bert"], num_text_layers))
+    for name in ("vismap2text", "roimap2text"):
+        sd.update(_prefixed(f"encoder.{name}", dense_state_dict(enc[name])))
+    for name in ("text2img_pooler", "text2roi_pooler"):
+        sd.update(_prefixed(f"encoder.{name}.dense", dense_state_dict(enc[name]["dense"])))
+    sd.update(_prefixed("encoder.box_head", box_head_state_dict(enc["box_head"])))
+    for name in ("text2img_attention", "mm_attention"):
+        sd.update(_prefixed(f"encoder.{name}.layer.0",
+                            bert_block_state_dict(enc[name]["layer_0"])))
+    sd.update(_prefixed("text_pooler.dense", dense_state_dict(params["text_pooler"]["dense"])))
+    sd.update(_prefixed("classifier", dense_state_dict(params["classifier"])))
+    return sd
+
+
+def visual_state_dict_from_jax(visual_params) -> StateDict:
+    """VisualFeatures params `{"backbone": ...}` -> torchvision keys (inverse
+    of `macsa_tpu.models.resnet.import_torchvision_resnet`)."""
+    bb = visual_params["backbone"]
+
+    def conv(p):
+        return {"weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))}
+
+    def bn(p):
+        return {"weight": _t(p["scale"]), "bias": _t(p["bias"]),
+                "running_mean": _t(p["mean"]), "running_var": _t(p["var"])}
+
+    sd = {**_prefixed("conv1", conv(bb["conv1"])), **_prefixed("bn1", bn(bb["bn1"]))}
+    for name, p in bb.items():
+        if not name.startswith("layer"):
+            continue
+        stage, block = name[len("layer"):].split("_")
+        prefix = f"layer{stage}.{block}"
+        for i in (1, 2, 3):
+            sd.update(_prefixed(f"{prefix}.conv{i}", conv(p[f"conv{i}"])))
+            sd.update(_prefixed(f"{prefix}.bn{i}", bn(p[f"bn{i}"])))
+        if "ds_conv" in p:
+            sd.update(_prefixed(f"{prefix}.downsample.0", conv(p["ds_conv"])))
+            sd.update(_prefixed(f"{prefix}.downsample.1", bn(p["ds_bn"])))
+    return sd
+
+
+def _np(v) -> np.ndarray:
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def normalize_reference_keys(state_dict: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The reference's legacy-key renaming pass (inference.py:172-193), a
+    copy of `macsa_tpu.train.torch_import.normalize_reference_keys`, so
+    reference `.pth` files load into the port with `strict=True`."""
+    out = {}
+    for key, value in state_dict.items():
+        new_key = key
+        for prefix in ("module.",):  # DDP wrapper
+            if new_key.startswith(prefix):
+                new_key = new_key[len(prefix):]
+        new_key = new_key.replace("ent2img", "text2img")
+        new_key = new_key.replace("ent2roi", "text2roi")
+        new_key = new_key.replace("comb_attention", "mm_attention")
+        if new_key.startswith("encoder.text_pooler.") or \
+                new_key.startswith("encoder.classifier."):
+            new_key = new_key.replace("encoder.", "", 1)
+        if not new_key.startswith(("encoder.", "decoder.", "text_pooler.",
+                                   "classifier.")):
+            new_key = "encoder." + new_key
+        out[new_key] = _np(value)
+    return out

@@ -38,6 +38,7 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running (multi-process) tests")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device; skips without one")
 
 
 @pytest.fixture
