@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving path and fine-tune train step on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit (`nvcc`).  It builds the port's kernels from `macsa_tpu_torch/csrc`,
-holds each kernel against its plain PyTorch version at the serving shapes,
-then runs `make_finetune_eval_step` at the full width of the FCMF model
-(ViSoBERT-sized 12-layer text encoder at L=170, ResNet-152 over 7 images
-and 28 ROI crops per sample, batch 8, random weights from a seed) and
-checks that it went through both kernels.  Each phase prints one line; any
-failure raises and the exit code is not 0.  The second-to-last line lists
-the kernels as JSON; the last line is the run's JSON verdict.  Without a
-CUDA device it exits non-zero and prints no result.
+holds each kernel against its plain PyTorch version at the shapes of the
+paths below (K1's forward and backward with dropout on and off), then, at
+the full width of the FCMF model (ViSoBERT-sized 12-layer text encoder at
+L=170, ResNet-152 over 7 images and 28 ROI crops per sample, batch 8,
+random weights from a seed):
+* runs `make_finetune_eval_step` (the serving forward),
+* runs `make_finetune_train_step` (dropout 0.1, AdamW with the defaults
+  of `finetune.py`) for a few steps on one batch in f32 and bf16, after
+  holding one step's loss and gradients through the kernels against the
+  plain path's at dropout 0,
+and checks that each path went through its kernels.  Each phase prints one
+line; any failure raises and the exit code is not 0.  The second-to-last
+line lists the kernels as JSON; the last line is the run's JSON verdict.
+Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -26,7 +33,7 @@ import time
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-BATCH, NUM_ASPECTS, ITERS = 8, 6, 5
+BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 5, 10
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -123,6 +130,65 @@ def phase_k1(dev, fa):
             print(f"phase k1 {str(dtype)[6:]} mask {neg_name} [{b},{l},{h * d}] h={h}: "
                   f"max_abs_err={err:.3g} (atol {atol}) kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f}")
+    return report
+
+
+def phase_k1_bwd(dev, fa):
+    """K1 forward with dropout and K1's backward against their plain
+    versions (same seed, so the same mask) at the train step's shape."""
+    g = torch.Generator(dev).manual_seed(5)
+    b, l, h, d, seed = BATCH * NUM_ASPECTS, 170, 12, 64, 20240917
+    lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
+    lens[:8] = l
+    pad = torch.arange(l, device=dev)[None, :] >= lens[:, None]
+    q, k, v, gout = (torch.randn(b, l, h * d, device=dev, generator=g) for _ in range(4))
+    ar = lambda n: torch.arange(n, device=dev)
+    keep = fa.dropout_keep(seed, ar(b)[:, None, None, None], ar(h)[None, :, None, None],
+                           ar(l)[:, None], ar(l), 0.1).float().mean().item()
+    if abs(keep - 0.9) > 0.002:
+        raise AssertionError(f"K1 dropout keep fraction {keep} not within 0.9 +- 0.002")
+    print(f"phase k1_bwd keep fraction of the rate-0.1 mask over [{b},{h},{l},{l}]: {keep:.5f}")
+    # relative to max|ref|.  f32: summation order only.  bf16: the same
+    # rounding points on both sides, but one flipped rounding of a bf16
+    # operand moves a sum by a bf16 ulp of that term, and the plain forward
+    # rounds the scores to bf16 where the kernel keeps them in f32
+    tolerance = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+    report = {}
+    for neg_name, neg in (("-10000", -10000.0), ("finfo.min", torch.finfo(torch.float32).min)):
+        mask = torch.zeros(b, l, device=dev).masked_fill(pad, neg)
+        for dtype, tol in tolerance.items():
+            for rate in (0.0, 0.1):
+                qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, gout))
+                leaves = [x.clone().requires_grad_(True) for x in (qc, kc, vc)]
+                out = fa.fused_self_attention(*leaves, mask, h, rate, seed)
+                grads = torch.autograd.grad(out, leaves, gc, retain_graph=True)
+                want_out = fa.attention_reference(qc, kc, vc, mask, h, rate, seed)
+                wants = fa.attention_backward_reference(qc, kc, vc, mask, gc, h, rate, seed)
+                torch.cuda.synchronize()
+                abs_err, rel_err = {}, {}
+                for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                                           (want_out, *wants)):
+                    abs_err[name] = (got.float() - want.float()).abs().max().item()
+                    rel_err[name] = abs_err[name] / want.float().abs().max().item()
+                    if not rel_err[name] <= tol:
+                        raise AssertionError(f"K1 {name} {dtype} rate {rate} mask {neg_name}: "
+                                             f"error {rel_err[name]} of max|ref| > {tol}")
+                fwd_ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h, rate,
+                                                                 seed))
+                fwd_plain = cuda_ms(lambda: fa.attention_reference(qc, kc, vc, mask, h, rate,
+                                                                   seed))
+                bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gc,
+                                                             retain_graph=True))
+                bwd_plain = cuda_ms(lambda: fa.attention_backward_reference(
+                    qc, kc, vc, mask, gc, h, rate, seed))
+                report[(neg_name, dtype, rate)] = (abs_err, fwd_ms, fwd_plain, bwd_ms,
+                                                   bwd_plain)
+                print(f"phase k1_bwd {str(dtype)[6:]} rate {rate} mask {neg_name} "
+                      f"[{b},{l},{h * d}] h={h}: rel_err "
+                      + " ".join(f"{n}={e:.3g}" for n, e in rel_err.items())
+                      + f" (tol {tol} of max|ref|); fwd kernel_ms={fwd_ms:.4f} "
+                      f"plain_ms={fwd_plain:.4f}; bwd kernel_ms={bwd_ms:.4f} "
+                      f"plain_ms={bwd_plain:.4f}")
     return report
 
 
@@ -226,13 +292,127 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     return launches
 
 
+def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep,
+                optim, train_state):
+    """The fine-tune train step at full width: a gradient check at dropout
+    0 (kernels vs plain path, f32), then TRAIN_STEPS timed steps on one
+    batch in f32 and in bf16 through the kernels."""
+    def build(dtype: str, fused: bool, dropout: float):
+        kw = dict(dtype=dtype, fused_attention=fused, hidden_dropout_prob=dropout,
+                  attention_probs_dropout_prob=dropout)
+        cfg = config.FCMFConfig(model=config.ModelConfig(**kw),
+                                text=config.TextEncoderConfig(**kw))
+        return (cfg, fcmf.FCMF(cfg, device=dev),
+                resnet.VisualFeatures(config.ResNetConfig(dtype=dtype), device=dev))
+
+    cfg, model, visual = build("float32", True, 0.0)
+    layers.init_weights(model, torch.Generator(dev).manual_seed(6),
+                        cfg.model.initializer_range)
+    layers.init_weights(visual, torch.Generator(dev).manual_seed(7))
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = serving_batch(dev, cfg)
+    batch["labels"] = torch.randint(0, cfg.num_labels, (BATCH, NUM_ASPECTS), device=dev,
+                                    generator=torch.Generator(dev).manual_seed(8))
+    pairs = BATCH * cfg.num_imgs
+
+    # one step's loss and gradients at dropout 0: kernels against the plain
+    # path (attention without K1, pixels normalized by K2's plain version)
+    _, plain, _ = build("float32", False, 0.0)
+    plain.load_state_dict(weights, strict=True)
+    plain_batch = dict(batch)
+    for key in ("images", "roi_images"):
+        plain_batch[key] = image_prep.unpack_normalize_pixels_reference(batch[key],
+                                                                        torch.float32)
+    model.train()
+    plain.train()
+    loss_k, _ = steps.finetune_loss(model, visual, batch)
+    loss_k.backward()
+    loss_p, _ = steps.finetune_loss(plain, visual, plain_batch)
+    loss_p.backward()
+    torch.cuda.synchronize()
+    loss_err = abs(loss_k.item() - loss_p.item())
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"train loss kernels {loss_k.item()} vs plain {loss_p.item()}")
+    # f32 with TF32 off: summation order through 12+3 layers and their
+    # backward.  Each parameter within 1e-3 of its largest gradient, plus
+    # 1e-6 of the largest gradient of the model: the key biases' exact
+    # gradient is 0 (softmax is shift-invariant), so theirs is rounding
+    # noise of the gradients around them on both paths
+    plain_grads = dict(plain.named_parameters())
+    scale = max(p.grad.abs().max().item() for p in plain_grads.values()
+                if p.grad is not None)
+    worst = ("", 0.0)
+    for name, p in model.named_parameters():
+        gp = plain_grads[name].grad
+        if p.grad is None or gp is None:
+            if (p.grad is None) != (gp is None):
+                raise AssertionError(f"{name}: a gradient on one path only")
+            continue
+        tol = 1e-3 * gp.abs().max().item() + 1e-6 * scale
+        ratio = (p.grad - gp).abs().max().item() / tol
+        worst = max(worst, (name, ratio), key=lambda t: t[1])
+    if not worst[1] <= 1.0:
+        raise AssertionError(f"train gradients kernels vs plain: {worst[0]} at {worst[1]} "
+                             f"of its tolerance")
+    print(f"phase train grad check f32 dropout 0: loss {loss_k.item():.6f} kernels vs "
+          f"plain {loss_p.item():.6f} (|diff| {loss_err:.3g}, tol 1e-5); every gradient "
+          f"within 1e-3 of its max + 1e-6 of the largest ({scale:.3g}); worst {worst[0]} "
+          f"at {worst[1]:.3g} of its tolerance")
+    del plain, plain_batch, loss_k, loss_p, plain_grads
+    model.zero_grad(set_to_none=True)
+
+    def trainer(dtype: str):
+        _, m, v = build(dtype, True, 0.1)  # the reference's dropout rates
+        m.load_state_dict(weights, strict=True)
+        v.load_state_dict(visual.state_dict(), strict=True)
+        # finetune.py's defaults: 7e-5 encoder / 7e-4 head, wd 0.01, clip 1.0
+        opt = optim.AdamW(m.named_parameters(), optim.linear_warmup_schedule(7e-5, 1, 1000),
+                          weight_decay=0.01, max_grad_norm=1.0,
+                          head_learning_rate=optim.linear_warmup_schedule(7e-4, 1, 1000))
+        return steps.make_finetune_train_step(train_state.TrainState.create(m, v, opt))
+
+    # the main path: every count from 0, read right after
+    cuda_lib.reset_launch_counts()
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        step = trainer(dtype)
+        losses = [step(batch, seed=0)["loss"]]  # untimed: first launch of everything
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            losses.append(step(batch, seed=0)["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        losses = [x.item() for x in losses]
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train {dtype}: losses {losses} not finite and falling")
+        results[dtype] = (ms, losses)
+        del step
+        torch.cuda.empty_cache()
+    launches = dict(cuda_lib.launch_counts)
+    n_steps = 2 * (TRAIN_STEPS + 1)
+    want = {"fused_self_attention": cfg.text.num_hidden_layers * n_steps,
+            "fused_self_attention_bwd": cfg.text.num_hidden_layers * n_steps,
+            "device_normalize": 2 * n_steps}
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != {want}")
+    for dtype, (ms, losses) in results.items():
+        print(f"phase train {dtype}: {ms:.2f} ms/step, {pairs * 1e3 / ms:.1f} pairs/s over "
+              f"{TRAIN_STEPS} steps after one untimed, on {card}; losses "
+              + " ".join(f"{x:.4f}" for x in losses))
+    print(f"phase train launches over {n_steps} steps: {launches} (12 K1 forward, "
+          f"12 K1 backward, 2 K2 per step)")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     from macsa_tpu_torch import config
     from macsa_tpu_torch.models import fcmf, layers, resnet
     from macsa_tpu_torch.ops import cuda_lib, image_prep
     from macsa_tpu_torch.ops import fused_attention as fa
-    from macsa_tpu_torch.train import steps
+    from macsa_tpu_torch.train import optim, steps
+    from macsa_tpu_torch.train import state as train_state
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -255,24 +435,35 @@ def main() -> int:
 
     k2 = phase_k2(dev, image_prep)
     k1 = phase_k1(dev, fa)
+    k1_bwd = phase_k1_bwd(dev, fa)
     launches = phase_slice(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
                            image_prep)
+    torch.cuda.empty_cache()  # the serving models are gone
+    train_launches = phase_train(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
+                                 image_prep, optim, train_state)
 
-    k1_err = max(e for e, _, _ in k1.values())
+    k1_err = max([e for e, _, _ in k1.values()]
+                 + [errs["out"] for errs, *_ in k1_bwd.values()])
+    k1b_err = max(max(errs[n] for n in ("dq", "dk", "dv")) for errs, *_ in k1_bwd.values())
     k2_err = max(e for e, _, _ in k2.values())
-    _, k1_ms, k1_plain = k1[("-10000", torch.bfloat16)]
+    _, k1_ms, k1_plain, k1b_ms, k1b_plain = k1_bwd[("-10000", torch.bfloat16, 0.1)]
     _, k2_ms, k2_plain = k2[("packed_rois", torch.bfloat16)]
+    source = "macsa_tpu_torch/csrc/fused_attention.cu"
     kernels = [
-        {"name": "fused_self_attention", "route": "cuda",
-         "source": "macsa_tpu_torch/csrc/fused_attention.cu",
+        {"name": "fused_self_attention", "route": "cuda", "source": source,
          "replaces": "macsa_tpu/ops/fused_attention.py:92",
-         "launches": launches["fused_self_attention"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "launches": launches["fused_self_attention"]
+         + train_launches["fused_self_attention"],
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
+        {"name": "fused_self_attention_bwd", "route": "cuda", "source": source,
+         "replaces": "macsa_tpu/ops/fused_attention.py:118",
+         "launches": train_launches["fused_self_attention_bwd"],
+         "max_abs_err": k1b_err, "ms": k1b_ms, "plain_ms": k1b_plain},
         {"name": "device_normalize", "route": "cuda",
          "source": "macsa_tpu_torch/csrc/image_prep.cu",
          "replaces": "macsa_tpu/ops/image_prep.py:36",
-         "launches": launches["device_normalize"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "launches": launches["device_normalize"] + train_launches["device_normalize"],
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,9 +3,10 @@
 Counterpart of `macsa_tpu/models/box_attention.py` (reference:
 fcmf_framework/roi_modeling.py): pairwise box displacement log-ratios ->
 64-d sinusoidal embedding -> per-head ReLU gates, and log(max(gate, 1e-6))
-added to the scaled-dot scores before the softmax.  This is the plain path
-that FCMF serves with (no mask, no dropout, trigonometric embedding); the
-fused box-attention kernel of the JAX package is not ported yet.
+added to the scaled-dot scores before the softmax, and dropout on the
+probabilities in training.  This is the plain path that FCMF runs (no
+mask, trigonometric embedding); the fused box-attention kernel of the JAX
+package is not ported yet.
 Parameter names are the reference's: `linears.{0..3}` (q/k/v/out) and
 `WGs.{0..h-1}`, the per-head gates, run as one stacked matmul.
 """
@@ -13,12 +14,13 @@ Parameter names are the reference's: `linears.{0..3}` (q/k/v/out) and
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from macsa_tpu_torch.models.layers import Dense
+from macsa_tpu_torch.models.layers import Dense, DropoutRng, dropout
 
 GEO_CLAMP_MIN = 1e-6  # roi_modeling.py:40
 DIM_G = 64  # geometric embedding width
@@ -54,17 +56,19 @@ class BoxMultiHeadedAttention(nn.Module):
     (roi_modeling.py:49-180)."""
 
     def __init__(self, num_heads: int, d_model: int,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.1,
+                 device=None):
         super().__init__()
         self.num_heads, self.d_model = num_heads, d_model
         self.compute_dtype = compute_dtype
+        self.dropout_rate = dropout_rate
         self.linears = nn.ModuleList(Dense(d_model, d_model, compute_dtype, device=device)
                                      for _ in range(4))
         self.WGs = nn.ModuleList(Dense(DIM_G, 1, compute_dtype, device=device)
                                  for _ in range(num_heads))
 
     def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor,
-                boxes: torch.Tensor) -> torch.Tensor:
+                boxes: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         h, dt = self.num_heads, self.compute_dtype
         d_k = self.d_model // h
         geo = box_relational_embedding(boxes).to(dt)  # [B, N, N, 64]
@@ -83,7 +87,8 @@ class BoxMultiHeadedAttention(nn.Module):
 
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / math.sqrt(d_k)
         scores = scores + torch.log(torch.clamp(w_g.float(), min=GEO_CLAMP_MIN))
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
+        probs = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
+                        rng if self.training else None)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs.to(dt), v)
         b, _, n, _ = out.shape
         return self.linears[3](out.transpose(1, 2).reshape(b, n, self.d_model))

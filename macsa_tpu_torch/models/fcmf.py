@@ -45,8 +45,8 @@ class FeatureExtractor(nn.Module):
         super().__init__()
         self.cell = TextEncoder(config, device=device)
 
-    def forward(self, input_ids, token_type_ids=None, attention_mask=None):
-        return self.cell(input_ids, token_type_ids, attention_mask)
+    def forward(self, input_ids, token_type_ids=None, attention_mask=None, rng=None):
+        return self.cell(input_ids, token_type_ids, attention_mask, rng)
 
 
 class FCMFEncoder(nn.Module):
@@ -62,7 +62,9 @@ class FCMFEncoder(nn.Module):
         self.bert = FeatureExtractor(config.text, device=device)
         self.vismap2text = layers.Dense(config.visual_feat_dim, h, dt, device=device)
         self.roimap2text = layers.Dense(config.visual_feat_dim, h, dt, device=device)
-        self.box_head = BoxMultiHeadedAttention(config.box_heads, h, dt, device=device)
+        self.box_head = BoxMultiHeadedAttention(config.box_heads, h, dt,
+                                                mc.attention_probs_dropout_prob,
+                                                device=device)
         self.text2img_attention = layers.BertCrossEncoder(mc, device=device)
         self.text2img_pooler = layers.TokenPooler(mc, device=device)
         self.text2roi_pooler = layers.TokenPooler(mc, device=device)
@@ -75,13 +77,14 @@ class FCMFEncoder(nn.Module):
                 roi_coors: torch.Tensor,          # [B, I, R, 4]
                 token_type_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                added_attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                added_attention_mask: Optional[torch.Tensor] = None,
+                rng: Optional[layers.DropoutRng] = None) -> torch.Tensor:
         cfg = self.config
         dt = cfg.model.torch_dtype
         b, num_imgs = visual_embeds_att.shape[:2]
 
         # 1. text encoding
-        sequence_output, _ = self.bert(input_ids, token_type_ids, attention_mask)
+        sequence_output, _ = self.bert(input_ids, token_type_ids, attention_mask, rng)
         seq_len = sequence_output.shape[1]
         if added_attention_mask is None:
             added_attention_mask = torch.ones(b, seq_len + cfg.num_patches,
@@ -92,7 +95,7 @@ class FCMFEncoder(nn.Module):
         converted_img = self.vismap2text(_fold(visual_embeds_att).to(dt))  # [B*I, 49, H]
         img_mask = added_attention_mask[:, :cfg.num_patches].repeat_interleave(num_imgs, 0)
         ext_img_mask = layers.extend_attention_mask(img_mask, dtype=dt)
-        text2img = self.text2img_attention(text_rep[:, :1], converted_img, ext_img_mask)
+        text2img = self.text2img_attention(text_rep[:, :1], converted_img, ext_img_mask, rng)
         all_h = self.text2img_pooler(text2img).reshape(b, num_imgs, -1)
 
         # B. geometric ROI-aware attention (fcmf_pretraining.py:95-124); the
@@ -102,21 +105,21 @@ class FCMFEncoder(nn.Module):
             t2r_mask.repeat_interleave(num_imgs, 0), dtype=dt)
         converted_roi = self.roimap2text(_fold(roi_embeds_att).to(dt))  # [B*I, R, H]
         relative_roi = self.box_head(converted_roi, converted_roi, converted_roi,
-                                     _fold(roi_coors))
+                                     _fold(roi_coors), rng)
         text_roi = torch.cat([text_rep, relative_roi], dim=1)
-        roi_encoded = self.mm_attention(text_roi, ext_t2r_mask, num_query_tokens=1)
+        roi_encoded = self.mm_attention(text_roi, ext_t2r_mask, num_query_tokens=1, rng=rng)
         all_r = self.text2roi_pooler(roi_encoded).reshape(b, num_imgs, -1)
 
         # C. fusion [CLS | h_1..h_I | r_1..r_I] (fcmf_pretraining.py:126-141)
         fusion = torch.cat([sequence_output[:, :1], all_h, all_r], dim=1)
         comb_mask = added_attention_mask[:, :1 + 2 * num_imgs]
         ext_comb_mask = layers.extend_attention_mask(comb_mask, dtype=dt)
-        return self.mm_attention(fusion, ext_comb_mask)
+        return self.mm_attention(fusion, ext_comb_mask, rng=rng)
 
 
 class FCMF(nn.Module):
-    """Phase-2 classifier: FCMFEncoder -> first-token pool -> Dense in f32
-    (fcmf_framework/fcmf_multimodal.py:39-51)."""
+    """Phase-2 classifier: FCMFEncoder -> first-token pool -> dropout ->
+    Dense in f32 (fcmf_framework/fcmf_multimodal.py:39-51)."""
 
     def __init__(self, config: FCMFConfig, device=None):
         super().__init__()
@@ -128,7 +131,12 @@ class FCMF(nn.Module):
 
     def forward(self, input_ids, visual_embeds_att, roi_embeds_att, roi_coors,
                 token_type_ids=None, attention_mask=None,
-                added_attention_mask=None) -> torch.Tensor:
+                added_attention_mask=None,
+                rng: Optional[layers.DropoutRng] = None) -> torch.Tensor:
+        """Logits [B, num_labels]; dropout is on when the module is in
+        training mode and `rng` is given."""
         fused = self.encoder(input_ids, visual_embeds_att, roi_embeds_att, roi_coors,
-                             token_type_ids, attention_mask, added_attention_mask)
-        return self.classifier(self.text_pooler(fused).float())
+                             token_type_ids, attention_mask, added_attention_mask, rng)
+        cls = layers.dropout(self.text_pooler(fused), self.config.model.hidden_dropout_prob,
+                             rng if self.training else None)
+        return self.classifier(cls.float())

@@ -14,13 +14,17 @@ Conventions shared by every module of the port:
 * constructors allocate parameters without filling them: values come from
   `init_weights` (seeded through an explicit `torch.Generator`) or from
   `load_state_dict`,
-* serving only: there are no dropout layers yet (training is later work).
+* dropout sits where the JAX modules have it and is on only for a module
+  in training mode that is handed a `DropoutRng`: every forward takes an
+  optional `rng`, and without one (serving) the module is deterministic.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -28,6 +32,39 @@ from torch import nn
 from macsa_tpu_torch.config import ModelConfig
 from macsa_tpu_torch.ops.fused_attention import (
     attention_core, fused_self_attention, merge_heads, split_heads)
+
+
+@dataclasses.dataclass
+class DropoutRng:
+    """The randomness of one training step's dropout, from explicit
+    generators only: `device` draws the elementwise masks on the
+    activations' device, `host` draws the seed of each attention-kernel
+    call on the host, so no call waits on the device for it."""
+
+    device: torch.Generator
+    host: torch.Generator
+
+    @classmethod
+    def for_step(cls, seed: int, step: int, device) -> "DropoutRng":
+        """Generators derived from (seed, step), as the JAX step folds the
+        step into its key (`jax.random.fold_in(rng, state.step)`)."""
+        dev_seed, host_seed = np.random.SeedSequence([seed, step]).generate_state(2)
+        return cls(torch.Generator(torch.device(device)).manual_seed(int(dev_seed)),
+                   torch.Generator().manual_seed(int(host_seed)))
+
+    def keep_mask(self, shape, rate: float, device) -> torch.Tensor:
+        return torch.rand(shape, generator=self.device, device=device) >= rate
+
+    def kernel_seed(self) -> int:
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.host))
+
+
+def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Tensor:
+    """Inverted dropout (flax `nn.Dropout`): kept elements scaled by
+    1/(1-rate) in x's dtype, the others zero.  Identity without an rng."""
+    if rng is None or rate == 0.0:
+        return x
+    return torch.where(rng.keep_mask(x.shape, rate, x.device), x / (1.0 - rate), 0.0)
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -116,8 +153,9 @@ class BertSelfAttention(nn.Module):
     (`ops/fused_attention.py`) whenever the call matches its contract,
     exactly as the JAX package dispatches (`layers.py:154-160`):
     self-attention (Lq == Lk >= 32) under a [B, 1, 1, Lk] padding mask, i.e.
-    the text-encoder blocks.  Other call sites (CLS-query branches, the
-    15-token fusion, cross-attention) run the plain math."""
+    the text-encoder blocks, with the probs dropout inside the kernel.
+    Other call sites (CLS-query branches, the 15-token fusion,
+    cross-attention) run the plain math."""
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -128,32 +166,42 @@ class BertSelfAttention(nn.Module):
         self.value = Dense(h, h, dt, device=device)
 
     def forward(self, q_states: torch.Tensor, kv_states: torch.Tensor,
-                additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                additive_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         cfg = self.config
+        n = cfg.num_attention_heads
+        rng = rng if self.training else None
+        rate = 0.0 if rng is None else cfg.attention_probs_dropout_prob
         qr, kr, vr = self.query(q_states), self.key(kv_states), self.value(kv_states)
         if (cfg.fused_attention and additive_mask is not None
                 and additive_mask.dim() == 4 and additive_mask.shape[1] == 1
                 and additive_mask.shape[2] == 1
                 and qr.shape[1] == kr.shape[1] and qr.shape[1] >= 32):
             mask_row = additive_mask[:, 0, 0, :].float().contiguous()
-            return fused_self_attention(qr, kr, vr, mask_row, cfg.num_attention_heads)
-        n = cfg.num_attention_heads
+            seed = rng.kernel_seed() if rate > 0.0 else 0
+            return fused_self_attention(qr, kr, vr, mask_row, n, rate, seed)
+        keep = None
+        if rate > 0.0:
+            keep = rng.keep_mask((qr.shape[0], n, qr.shape[1], kr.shape[1]), rate, qr.device)
         ctx = attention_core(split_heads(qr, n), split_heads(kr, n),
-                             split_heads(vr, n), additive_mask)
+                             split_heads(vr, n), additive_mask, keep, rate)
         return merge_heads(ctx)
 
 
 class BertSelfOutput(nn.Module):
-    """dense -> LN(x + residual) (mm_modeling.py:269-280)."""
+    """dense -> dropout -> LN(x + residual) (mm_modeling.py:269-280)."""
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
         h, dt = config.hidden_size, config.torch_dtype
+        self.dropout_rate = config.hidden_dropout_prob
         self.dense = Dense(h, h, dt, device=device)
         self.LayerNorm = LayerNormTF(h, config.layer_norm_eps, dt, device=device)
 
-    def forward(self, hidden: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(hidden) + residual)
+    def forward(self, hidden: torch.Tensor, residual: torch.Tensor,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        h = dropout(self.dense(hidden), self.dropout_rate, rng if self.training else None)
+        return self.LayerNorm(h + residual)
 
 
 class BertAttention(nn.Module):
@@ -169,9 +217,10 @@ class BertAttention(nn.Module):
         self.output = BertSelfOutput(config, device=device)
 
     def forward(self, hidden: torch.Tensor, additive_mask: Optional[torch.Tensor],
-                num_query_tokens: Optional[int] = None) -> torch.Tensor:
+                num_query_tokens: Optional[int] = None,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
         q_states = hidden if num_query_tokens is None else hidden[:, :num_query_tokens]
-        return self.output(self.self(q_states, hidden, additive_mask), q_states)
+        return self.output(self.self(q_states, hidden, additive_mask, rng), q_states, rng)
 
 
 class BertCrossAttention(nn.Module):
@@ -183,8 +232,9 @@ class BertCrossAttention(nn.Module):
         self.output = BertSelfOutput(config, device=device)
 
     def forward(self, s1: torch.Tensor, s2: torch.Tensor,
-                s2_additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.output(self.self(s1, s2, s2_additive_mask), s1)
+                s2_additive_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.output(self.self(s1, s2, s2_additive_mask, rng), s1, rng)
 
 
 class BertMLP(nn.Module):
@@ -198,17 +248,19 @@ class BertMLP(nn.Module):
         super().__init__()
         h, i, dt = config.hidden_size, config.intermediate_size, config.torch_dtype
         self.act = ACT2FN[config.hidden_act]
+        self.dropout_rate = config.hidden_dropout_prob
         self.intermediate = nn.ModuleDict({"dense": Dense(h, i, dt, device=device)})
         self.output = nn.ModuleDict({
             "dense": Dense(i, h, dt, device=device),
             "LayerNorm": LayerNormTF(h, config.layer_norm_eps, dt, device=device)})
 
-    def mlp(self, hidden: torch.Tensor) -> torch.Tensor:
+    def mlp(self, hidden: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
         h = self.output["dense"](self.act(self.intermediate["dense"](hidden)))
+        h = dropout(h, self.dropout_rate, rng if self.training else None)
         return self.output["LayerNorm"](h + hidden)
 
-    def forward(self, hidden: torch.Tensor) -> torch.Tensor:
-        return self.mlp(hidden)
+    def forward(self, hidden: torch.Tensor, rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.mlp(hidden, rng)
 
 
 class BertLayer(BertMLP):
@@ -219,8 +271,9 @@ class BertLayer(BertMLP):
         self.attention = BertAttention(config, device=device)
 
     def forward(self, hidden: torch.Tensor, additive_mask: Optional[torch.Tensor],
-                num_query_tokens: Optional[int] = None) -> torch.Tensor:
-        return self.mlp(self.attention(hidden, additive_mask, num_query_tokens))
+                num_query_tokens: Optional[int] = None,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.mlp(self.attention(hidden, additive_mask, num_query_tokens, rng), rng)
 
 
 class BertCrossAttentionLayer(BertMLP):
@@ -231,8 +284,9 @@ class BertCrossAttentionLayer(BertMLP):
         self.attention = BertCrossAttention(config, device=device)
 
     def forward(self, s1: torch.Tensor, s2: torch.Tensor,
-                s2_additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.mlp(self.attention(s1, s2, s2_additive_mask))
+                s2_additive_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.mlp(self.attention(s1, s2, s2_additive_mask, rng), rng)
 
 
 class MultimodalEncoder(nn.Module):
@@ -244,8 +298,9 @@ class MultimodalEncoder(nn.Module):
         self.layer = nn.ModuleList([BertLayer(config, device=device)])
 
     def forward(self, hidden: torch.Tensor, additive_mask: Optional[torch.Tensor],
-                num_query_tokens: Optional[int] = None) -> torch.Tensor:
-        return self.layer[0](hidden, additive_mask, num_query_tokens)
+                num_query_tokens: Optional[int] = None,
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.layer[0](hidden, additive_mask, num_query_tokens, rng)
 
 
 class BertCrossEncoder(nn.Module):
@@ -257,8 +312,9 @@ class BertCrossEncoder(nn.Module):
         self.layer = nn.ModuleList([BertCrossAttentionLayer(config, device=device)])
 
     def forward(self, s1: torch.Tensor, s2: torch.Tensor,
-                s2_additive_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        return self.layer[0](s1, s2, s2_additive_mask)
+                s2_additive_mask: Optional[torch.Tensor],
+                rng: Optional[DropoutRng] = None) -> torch.Tensor:
+        return self.layer[0](s1, s2, s2_additive_mask, rng)
 
 
 class TokenPooler(nn.Module):

@@ -55,13 +55,15 @@ class RobertaEmbeddings(nn.Module):
         self.LayerNorm = layers.LayerNormTF(h, config.layer_norm_eps, dt, device=device)
 
     def forward(self, input_ids: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                rng: Optional[layers.DropoutRng] = None) -> torch.Tensor:
         pos_ids = create_position_ids(input_ids, self.config.pad_token_id)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         h = (self.word_embeddings(input_ids) + self.position_embeddings(pos_ids)
              + self.token_type_embeddings(token_type_ids))
-        return self.LayerNorm(h)
+        return layers.dropout(self.LayerNorm(h), self.config.hidden_dropout_prob,
+                              rng if self.training else None)
 
 
 class TextEncoder(nn.Module):
@@ -81,14 +83,15 @@ class TextEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                attention_mask: Optional[torch.Tensor] = None
+                attention_mask: Optional[torch.Tensor] = None,
+                rng: Optional[layers.DropoutRng] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        h = self.embeddings(input_ids, token_type_ids)
+        h = self.embeddings(input_ids, token_type_ids, rng)
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
         # HF extended-mask convention: (1 - m) * finfo(float32).min
         ext = attention_mask[:, None, None, :].float()
         ext = (1.0 - ext) * torch.finfo(torch.float32).min
         for layer in self.encoder["layer"]:
-            h = layer(h, ext)
+            h = layer(h, ext, rng=rng)
         return h, self.pooler(h)

@@ -34,11 +34,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launch_counts: collections.Counter = collections.Counter()
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_U = ctypes.c_uint
 # C entry points: name -> argtypes.  Every pointer and the stream go as
 # c_void_p: an undeclared pointer would be cut to 32 bits.
 _SIGNATURES = {
-    # q, k, v, mask, out, B, L, H, D, bf16, stream
-    "macsa_fused_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, k, v, mask, out, lse (or NULL), B, L, H, D, bf16,
+    # dropout, keep_threshold, inv_keep, seed, stream
+    "macsa_fused_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _U, _F, _U, _P],
+    # q, k, v, mask, g, lse, row_term, dq, dk, dv, B, L, H, D, bf16,
+    # dropout, keep_threshold, inv_keep, seed, stream
+    "macsa_fused_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _U, _F, _U, _P],
     # words, out, frames, words_per_frame, bf16, inv255, mean[3], inv_std[3], stream
     "macsa_unpack_normalize": [_P, _P, _LL, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     # bytes, out, n, bf16, inv255, mean[3], inv_std[3], stream

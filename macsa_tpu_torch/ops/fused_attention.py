@@ -1,27 +1,39 @@
-"""Fused multi-head self-attention forward (kernel K1).
+"""Fused multi-head self-attention with dropout, forward and backward (K1).
 
-Counterpart of `macsa_tpu/ops/fused_attention.py` (`fused_self_attention`),
-forward only and deterministic: softmax(QK^T/sqrt(d) + mask row) in f32,
-then @V, with q/k/v in the projections' native `[B, L, H*d]` layout and
-the heads sliced inside the kernel, so no transpose runs around it.
+Counterpart of `macsa_tpu/ops/fused_attention.py` (`fused_self_attention`
+and its custom VJP): softmax(QK^T/sqrt(d) + mask row) in f32, dropout on the
+probabilities, then @V, with q/k/v in the projections' native `[B, L, H*d]`
+layout and the heads sliced inside the kernels, so no transpose runs
+around them.  The backward recomputes the probabilities and regenerates the
+dropout mask; only q/k/v, the mask row, the seed and a per-row f32
+logsumexp are kept from the forward.
 
-On a CUDA tensor `fused_self_attention` launches the hand-written kernel
-(`macsa_tpu_torch/csrc/fused_attention.cu`); on a CPU tensor it runs
-`attention_reference`, the plain PyTorch version of the same math.
-Dropout (rate > 0) and the backward belong to training and are not
-ported yet: a rate above 0 raises.
+The dropout mask is a keyed 32-bit hash of (seed, b, h, i, j) alone
+(`dropout_keep`), so a kernel draws the same bits whatever block or thread
+computes an element, and the plain PyTorch versions reproduce them exactly.
+It is not the TPU's PRNG stream: only the keep rate and independence carry
+over, as between the TPU kernel and `jax.random` in the JAX package.
+
+On a CUDA tensor `fused_self_attention` launches the hand-written kernels
+(`macsa_tpu_torch/csrc/fused_attention.cu`): the forward, and under autograd
+the backward.  On a CPU tensor it runs `attention_reference`, the plain
+version, and autograd differentiates that.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from macsa_tpu_torch.ops import cuda_lib
 
 _DTYPES = (torch.float32, torch.bfloat16)
-HEAD_DIMS = (32, 64)  # head widths the kernel is instantiated for
+HEAD_DIMS = (32, 64)  # head widths the kernels are instantiated for
+
+_M32 = 0xFFFFFFFF
+_MIX1, _MIX2 = 0x7FEB352D, 0x846CA68B  # the 32-bit finalizer of csrc/fused_attention.cu
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -36,29 +48,137 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, n * d)
 
 
+# ---------------------------------------------------------------------------
+# the dropout mask
+# ---------------------------------------------------------------------------
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2^32 for int64 x in [0, 2^32): the product is taken from
+    c's 16-bit halves, so no intermediate leaves int64."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash (xorshift-multiply finalizer)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, _MIX1)
+    x = x ^ (x >> 15)
+    x = _mul32(x, _MIX2)
+    return x ^ (x >> 16)
+
+
+def _as_u32(x) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int64) & _M32
+
+
+def keep_threshold(rate: float) -> int:
+    """Bits below this value drop an element (the TPU kernel's
+    `round(rate * 2^32)`, `_keep_mask`)."""
+    return min(int(round(rate * 2.0 ** 32)), 2 ** 32 - 1)
+
+
+def dropout_bits(seed: int, b, h, i, j) -> torch.Tensor:
+    """uint32 random bits (held in int64) for the probability element
+    (b, h, i, j), broadcast over the coordinate tensors:
+    mix(mix(mix(mix(mix(seed) ^ b) ^ h) ^ i) ^ j)."""
+    row = _mix32(_as_u32(seed))
+    for coord in (b, h, i):
+        row = _mix32(row ^ _as_u32(coord))
+    return _mix32(row ^ _as_u32(j))
+
+
+def dropout_keep(seed: int, b, h, i, j, rate: float) -> torch.Tensor:
+    """Keep mask of element (b, h, i, j): a function of those coordinates
+    and the seed only, so every tiling of the tensor draws the same bits."""
+    return dropout_bits(seed, b, h, i, j) >= keep_threshold(rate)
+
+
+def _keep_mask(seed: int, b: int, n: int, l: int, rate: float, device) -> torch.Tensor:
+    """The [B, n, L, L] keep mask of one attention call."""
+    ar = lambda m: torch.arange(m, device=device)
+    return dropout_keep(seed, ar(b)[:, None, None, None], ar(n)[None, :, None, None],
+                        ar(l)[:, None], ar(l), rate)
+
+
+def _inv_keep(rate: float) -> float:
+    """1/(1-rate) rounded to f32, the factor the kernels apply."""
+    return float(np.float32(1.0 / (1.0 - rate)))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   additive_mask: torch.Tensor | None) -> torch.Tensor:
-    """Deterministic scaled-dot-product attention over split heads
+                   additive_mask: torch.Tensor | None,
+                   keep: torch.Tensor | None = None, rate: float = 0.0) -> torch.Tensor:
+    """Scaled-dot-product attention over split heads
     (`macsa_tpu.models.layers.attention_core`): q/k/v [B, n, L, d], mask
     broadcastable to [B, n, Lq, Lk].  Scores leave the matmul in the
-    operand dtype and the softmax runs in f32; the probs are cast back to
-    the operand dtype before @V."""
+    operand dtype and the softmax runs in f32; with a `keep` mask the
+    kept probs are scaled by 1/(1-rate) and the others zeroed; the probs
+    are cast back to the operand dtype before @V."""
     scores = torch.einsum("bnqd,bnkd->bnqk", q, k).float() / math.sqrt(q.shape[-1])
     if additive_mask is not None:
         scores = scores + additive_mask.float()
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bnqk,bnkd->bnqd", probs, v)
+    probs = torch.softmax(scores, dim=-1)
+    if keep is not None:
+        probs = torch.where(keep, probs * _inv_keep(rate), 0.0)
+    return torch.einsum("bnqk,bnkd->bnqd", probs.to(q.dtype), v)
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        mask: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Plain version of K1: q/k/v [B, L, H*d], mask [B, L] additive f32."""
+                        mask: torch.Tensor, num_heads: int, rate: float = 0.0,
+                        seed: int = 0) -> torch.Tensor:
+    """Plain version of K1: q/k/v [B, L, H*d], mask [B, L] additive f32;
+    dropout at `rate` with the kernels' hashed mask."""
+    b, l, _ = q.shape
+    keep = _keep_mask(seed, b, num_heads, l, rate, q.device) if rate > 0.0 else None
     ctx = attention_core(split_heads(q, num_heads), split_heads(k, num_heads),
-                         split_heads(v, num_heads), mask[:, None, None, :])
+                         split_heads(v, num_heads), mask[:, None, None, :], keep, rate)
     return merge_heads(ctx)
 
 
-def _check_cuda_args(q, k, v, mask, num_heads):
+def attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 mask: torch.Tensor, g: torch.Tensor, num_heads: int,
+                                 rate: float = 0.0, seed: int = 0):
+    """Plain version of K1's backward: (dq, dk, dv) for the cotangent g
+    [B, L, H*d], with the TPU kernel's rounding points (`_bwd_kernel`):
+    probs in f32 from f32-accumulated scores, the dropped probs cast to the
+    operand dtype before dV, ds cast to the operand dtype before dQ/dK,
+    f32 accumulation, outputs in the operand dtype."""
+    dt = q.dtype
+    b, l, _ = q.shape
+    scale = 1.0 / math.sqrt(q.shape[-1] // num_heads)
+    qh, kh, vh, gh = (split_heads(t, num_heads).float() for t in (q, k, v, g))
+    s = torch.einsum("bnqd,bnkd->bnqk", qh, kh) * scale + mask.float()[:, None, None, :]
+    p = torch.softmax(s, dim=-1)
+    dpd = torch.einsum("bnqd,bnkd->bnqk", gh, vh)
+    if rate > 0.0:
+        keep = _keep_mask(seed, b, num_heads, l, rate, q.device)
+        inv = _inv_keep(rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dpd * inv, 0.0)
+    else:
+        pd, dp = p, dpd
+    dv = torch.einsum("bnqk,bnqd->bnkd", pd.to(dt).float(), gh)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+    dq = torch.einsum("bnqk,bnkd->bnqd", ds, kh) * scale
+    dk = torch.einsum("bnqk,bnqd->bnkd", ds, qh) * scale
+    return tuple(merge_heads(x).to(dt) for x in (dq, dk, dv))
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _check_rate(rate: float) -> None:
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+
+
+def _check_cuda_args(q, k, v, mask, num_heads, *extra):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share one of {_DTYPES}: "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
@@ -72,37 +192,95 @@ def _check_cuda_args(q, k, v, mask, num_heads):
     if mask.dtype != torch.float32 or tuple(mask.shape) != (b, l):
         raise ValueError(f"mask must be float32 [{b}, {l}], got "
                          f"{mask.dtype} {tuple(mask.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("mask", mask)):
+    for name, t in (("q", q), ("k", k), ("v", v), ("mask", mask), *extra):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
+def _dropout_args(rate: float, seed: int):
+    """(dropout on, keep threshold, 1/(1-rate), seed as uint32) for the C calls."""
+    if rate == 0.0:
+        return 0, 0, 1.0, 0
+    return 1, keep_threshold(rate), _inv_keep(rate), int(seed) & _M32
+
+
+def _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse):
+    """Forward kernel -> (out [B, L, H*d], lse [B, H, L] f32 or None)."""
+    b, l, hd = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty(b, num_heads, l, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    status = cuda_lib.library().macsa_fused_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
+        b, l, num_heads, hd // num_heads, int(q.dtype == torch.bfloat16),
+        *_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
+    cuda_lib.check(status, "macsa_fused_attention_fwd")
+    cuda_lib.launch_counts["fused_self_attention"] += 1
+    return out, lse
+
+
+def _launch_bwd(q, k, v, mask, lse, g, num_heads, rate, seed):
+    """Backward kernels (two launches, one count) -> (dq, dk, dv)."""
+    _check_cuda_args(q, k, v, mask, num_heads, ("g", g), ("lse", lse))
+    if g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError(f"g must be {q.dtype} {tuple(q.shape)}, "
+                         f"got {g.dtype} {tuple(g.shape)}")
+    b, l, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    if q.numel() == 0:
+        return dq, dk, dv
+    row_term = torch.empty_like(lse)  # rowsum(dp * p), written by the dq launch
+    status = cuda_lib.library().macsa_fused_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), row_term.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, l, num_heads, hd // num_heads, int(q.dtype == torch.bfloat16),
+        *_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
+    cuda_lib.check(status, "macsa_fused_attention_bwd")
+    cuda_lib.launch_counts["fused_self_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K1 forward kernel, and K1's backward kernel as its gradient (the
+    custom VJP of the JAX package).  The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, num_heads, rate, seed):
+        out, lse = _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse=True)
+        ctx.save_for_backward(q, k, v, mask, lse)
+        ctx.num_heads, ctx.rate, ctx.seed = num_heads, rate, seed
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, mask, lse = ctx.saved_tensors
+        dq, dk, dv = _launch_bwd(q, k, v, mask, lse, g.contiguous(), ctx.num_heads,
+                                 ctx.rate, ctx.seed)
+        return dq, dk, dv, None, None, None, None
+
+
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: torch.Tensor, num_heads: int,
-                         rate: float = 0.0) -> torch.Tensor:
-    """Multi-head softmax(QK^T/sqrt(d) + mask) @ V.
+                         rate: float = 0.0, seed: int = 0) -> torch.Tensor:
+    """Multi-head softmax(QK^T/sqrt(d) + mask) -> dropout -> @V.
 
     q/k/v: [B, L, H*d] projection outputs (not head-split); mask: [B, L]
-    additive f32 row (0 keep, large negative drop).  Returns [B, L, H*d]
-    in the input dtype, merged heads, ready for the output projection."""
-    if rate != 0.0:
-        raise NotImplementedError("attention dropout (rate > 0) is not ported yet")
+    additive f32 row (0 keep, large negative drop); `seed` keys the dropout
+    mask (ignored at rate 0).  Returns [B, L, H*d] in the input dtype,
+    merged heads, ready for the output projection.  Gradients flow to
+    q/k/v, through K1's backward kernel on CUDA tensors."""
+    _check_rate(rate)
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, mask, num_heads)
+        return attention_reference(q, k, v, mask, num_heads, rate, seed)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_cuda_args(q, k, v, mask, num_heads)
-    b, l, hd = q.shape
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = cuda_lib.library()
-    status = lib.macsa_fused_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, l, num_heads, hd // num_heads, int(q.dtype == torch.bfloat16),
-        cuda_lib.stream_handle(q.device))
-    cuda_lib.check(status, "macsa_fused_attention_fwd")
-    cuda_lib.launch_counts["fused_self_attention"] += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FusedAttention.apply(q, k, v, mask, num_heads, rate, seed)
+    return _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse=False)[0]

@@ -14,7 +14,8 @@ Dense kernels are flax [in, out] and torch [out, in]; conv kernels are flax
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from collections.abc import Mapping
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +103,23 @@ def fcmf_state_dict_from_jax(params, num_text_layers: int) -> StateDict:
     sd.update(_prefixed("text_pooler.dense", dense_state_dict(params["text_pooler"]["dense"])))
     sd.update(_prefixed("classifier", dense_state_dict(params["classifier"])))
     return sd
+
+
+def fcmf_param_paths(params, num_text_layers: int) -> Dict[str, Tuple[str, ...]]:
+    """Port parameter name -> path of the JAX FCMF leaf it is made from
+    (the box head's per-head gates `WGs.{h}.*` share the `wg` leaves).
+    Read off `fcmf_state_dict_from_jax` run on a tree whose leaves hold
+    their own index, so the map cannot drift from the importer."""
+    paths: list = []
+
+    def mark(tree, prefix):
+        if isinstance(tree, Mapping):
+            return {k: mark(v, prefix + (k,)) for k, v in tree.items()}
+        paths.append(prefix)
+        return np.full(np.shape(tree), len(paths) - 1, np.float32)
+
+    sd = fcmf_state_dict_from_jax(mark(params, ()), num_text_layers)
+    return {name: paths[int(t.reshape(-1)[0])] for name, t in sd.items()}
 
 
 def visual_state_dict_from_jax(visual_params) -> StateDict:

@@ -1,0 +1,201 @@
+"""Optimizers and LR schedules, the counterparts of `macsa_tpu/train/optim.py`.
+
+The reference recipe (run_multimodal_fcmf.py:247-314):
+* AdamW with a no-decay group for biases and LayerNorm weights,
+* dual learning rates: the classifier head (`classifier`, `text_pooler`)
+  gets `classifier_head_learning_rate`, the rest the encoder rate,
+* HF-style linear warmup, counted in optimizer updates,
+* global-norm clipping, g * min(1, max_norm / ||g||) as optax computes it
+  (no `+1e-6`, unlike `torch.nn.utils.clip_grad_norm_`),
+* gradient accumulation with `optax.MultiSteps` semantics: the running
+  mean of k gradients, then one clipped update,
+* `BertAdam` (fcmf_framework/optimization.py): Adam without bias
+  correction, decoupled weight decay, inline warmup schedules.
+
+Both optimizers read `.grad` of their parameters in `step()`, as
+`torch.optim` optimizers do.  A parameter that got no gradient is updated
+with a zero one, as optax updates every leaf (its weight still decays).
+`torch.optim.AdamW` carries the AdamW math: its decoupled decay
+p <- p - lr * (adam + wd * p), with p taken before the update, is optax's
+`adamw` (`scale_by_adam`, `add_decayed_weights`, `scale_by_learning_rate`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Iterable, Optional, Sequence, Tuple, Union
+
+import torch
+
+Schedule = Callable[[int], float]
+NO_DECAY = ("bias", "LayerNorm.weight")  # run_multimodal_fcmf.py:249
+HEAD_KEYWORDS = ("classifier", "text_pooler")  # run_multimodal_fcmf.py:252-286
+
+
+def linear_warmup_schedule(base_lr: float, warmup_steps: int, total_steps: int) -> Schedule:
+    """HF `get_linear_schedule_with_warmup`: the rate of update `step`
+    (counted from 0, so the first update's rate is 0)."""
+    warmup_steps = max(warmup_steps, 1)
+
+    def schedule(step: int) -> float:
+        if step < warmup_steps:
+            return base_lr * step / warmup_steps
+        return base_lr * max(0.0, (total_steps - step) / max(1.0, total_steps - warmup_steps))
+
+    return schedule
+
+
+def is_no_decay(name: str) -> bool:
+    """Biases and LayerNorm weights take no weight decay."""
+    return any(nd in name for nd in NO_DECAY)
+
+
+def is_head(name: str) -> bool:
+    """The classifier head gets its own learning rate."""
+    return any(kw in part for part in name.split(".") for kw in HEAD_KEYWORDS)
+
+
+def _as_schedule(lr: Union[float, Schedule]) -> Schedule:
+    return lr if callable(lr) else (lambda step: lr)
+
+
+def _grads(params: Sequence[torch.Tensor]) -> list:
+    """Each parameter's gradient, a zero one where it has none."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    return [p.grad for p in params]
+
+
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None:
+    """Scale `grads` in place by min(1, max_norm / ||grads||), on the
+    device: nothing waits for the norm."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    torch._foreach_mul_(grads, torch.clamp(max_norm / norm, max=1.0))
+
+
+class AdamW:
+    """AdamW over named parameters, in four groups: encoder or head, with
+    or without decay (the JAX `make_adamw`)."""
+
+    def __init__(self, named_parameters: Iterable[Tuple[str, torch.nn.Parameter]],
+                 learning_rate: Union[float, Schedule], weight_decay: float = 0.01,
+                 eps: float = 1e-8, max_grad_norm: Optional[float] = 1.0,
+                 head_learning_rate: Union[float, Schedule, None] = None,
+                 accumulate_steps: int = 1):
+        if accumulate_steps < 1:
+            raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
+        named = [(n, p) for n, p in named_parameters if p.requires_grad]
+        self.params = [p for _, p in named]
+        self.schedules = {
+            "encoder": _as_schedule(learning_rate),
+            "head": _as_schedule(learning_rate if head_learning_rate is None
+                                 else head_learning_rate)}
+        groups = []
+        for part in ("encoder", "head"):
+            for decay in (True, False):
+                ps = [p for n, p in named
+                      if is_head(n) == (part == "head")
+                      and is_no_decay(n) != decay]
+                if ps:
+                    groups.append({"params": ps, "part": part,
+                                   "weight_decay": weight_decay if decay else 0.0})
+        self.optimizer = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=eps)
+        self.max_grad_norm = max_grad_norm
+        self.accumulate_steps = accumulate_steps
+        self.updates = 0  # optimizer updates, the schedules' count
+        self._micro = 0
+        self._acc: Optional[list] = None
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """Take the parameters' gradients: accumulate them, or (every
+        `accumulate_steps` calls) clip and apply one update."""
+        grads = _grads(self.params)
+        if self.accumulate_steps > 1:
+            if self._acc is None:
+                self._acc = [torch.zeros_like(g) for g in grads]
+            # optax.MultiSteps' running mean: acc += (g - acc) / (n + 1)
+            diff = torch._foreach_sub(grads, self._acc)
+            torch._foreach_div_(diff, float(self._micro + 1))
+            torch._foreach_add_(self._acc, diff)
+            self._micro += 1
+            if self._micro < self.accumulate_steps:
+                return
+            self._micro = 0
+            torch._foreach_copy_(grads, self._acc)
+            torch._foreach_zero_(self._acc)
+        if self.max_grad_norm is not None:
+            clip_by_global_norm_(grads, self.max_grad_norm)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.schedules[group["part"]](self.updates)
+        self.optimizer.step()
+        self.updates += 1
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+
+# ---------------------------------------------------------------------------
+# BertAdam (reference fcmf_framework/optimization.py)
+# ---------------------------------------------------------------------------
+
+def warmup_cosine(x: float, warmup: float = 0.002) -> float:
+    if x < warmup:
+        return x / warmup
+    return 0.5 * (1.0 + math.cos(math.pi * x))
+
+
+def warmup_constant(x: float, warmup: float = 0.002) -> float:
+    return x / warmup if x < warmup else 1.0
+
+
+def warmup_linear(x: float, warmup: float = 0.002) -> float:
+    return x / warmup if x < warmup else 1.0 - x
+
+
+SCHEDULES = {
+    "warmup_cosine": warmup_cosine,
+    "warmup_constant": warmup_constant,
+    "warmup_linear": warmup_linear,
+}
+
+
+class BertAdam:
+    """BERT-style Adam without bias correction, decoupled weight decay on
+    every parameter, and inline warmup: the JAX `bert_adam`.  Clipping is
+    global, as there (the reference clips per group)."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
+                 warmup: float = -1, t_total: int = -1, schedule: str = "warmup_linear",
+                 b1: float = 0.9, b2: float = 0.999, e: float = 1e-6,
+                 weight_decay: float = 0.01, max_grad_norm: float = 1.0):
+        self.params = [p for p in params if p.requires_grad]
+        self.lr, self.warmup, self.t_total = lr, warmup, t_total
+        self.schedule = SCHEDULES[schedule]
+        self.b1, self.b2, self.e = b1, b2, e
+        self.weight_decay, self.max_grad_norm = weight_decay, max_grad_norm
+        self.count = 0
+        self.next_m = [torch.zeros_like(p) for p in self.params]
+        self.next_v = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = _grads(self.params)
+        if self.max_grad_norm is not None and self.max_grad_norm > 0:
+            clip_by_global_norm_(grads, self.max_grad_norm)
+        lr_t = self.lr
+        if self.t_total != -1:
+            lr_t = self.lr * self.schedule(self.count / self.t_total, self.warmup)
+        for p, g, m, v in zip(self.params, grads, self.next_m, self.next_v):
+            m.mul_(self.b1).add_(g, alpha=1 - self.b1)
+            v.mul_(self.b2).addcmul_(g, g, value=1 - self.b2)
+            u = m / (v.sqrt() + self.e)
+            if self.weight_decay > 0.0:
+                u = u + self.weight_decay * p
+            p.sub_(lr_t * u)
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None

@@ -1,21 +1,26 @@
-"""The serving half of `macsa_tpu/train/steps.py`: the 6-aspect FCMF forward.
+"""The Phase-2 fine-tune steps of `macsa_tpu/train/steps.py`: the 6-aspect
+FCMF forward, the eval step and the train step.
 
 The reference loops over the six aspects and runs 7 + 7xR separate
 ResNet-152 forwards per step (run_multimodal_fcmf.py:427-489).  As in the
 JAX package, the aspect views are folded into one B*A batch through one
 forward, and all images / all ROI crops go through the ResNet as one batch
-each, normalized on the device first (kernel K2).
+each, normalized on the device first (kernel K2).  The loss is the
+per-aspect mean cross-entropy summed over the aspects (:474-475).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from macsa_tpu_torch.models.fcmf import FCMF
+from macsa_tpu_torch.models.layers import DropoutRng
 from macsa_tpu_torch.models.resnet import VisualFeatures
 from macsa_tpu_torch.ops.image_prep import device_normalize
+from macsa_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 
@@ -46,25 +51,71 @@ def _tile_visual(x: torch.Tensor, a: int) -> torch.Tensor:
     return x.repeat_interleave(a, dim=0)
 
 
-def fcmf_forward_all_aspects(model: FCMF, visual: VisualFeatures,
-                             batch: Batch) -> torch.Tensor:
-    """Full FCMF forward over all aspect views -> logits [B, A, num_labels]."""
-    grid, roi = extract_visual(visual, batch["images"], batch["roi_images"],
-                               out_dtype=model.config.model.torch_dtype)
+def fcmf_forward_all_aspects(model: FCMF, visual: VisualFeatures, batch: Batch,
+                             rng: Optional[DropoutRng] = None) -> torch.Tensor:
+    """Full FCMF forward over all aspect views -> logits [B, A, num_labels].
+
+    The ResNet runs without autograd (the frozen CNN; the JAX step's
+    `stop_gradient`).  If the batch carries precomputed `grid`/`roi`
+    features (the frozen-CNN feature cache), the ResNet is skipped."""
+    dt = model.config.model.torch_dtype
+    if "grid" in batch:
+        grid, roi = batch["grid"].to(dt), batch["roi"].to(dt)
+    else:
+        with torch.no_grad():
+            grid, roi = extract_visual(visual, batch["images"], batch["roi_images"],
+                                       out_dtype=dt)
     text, b, a = _fold_aspects(batch)
     logits = model(text["input_ids"], _tile_visual(grid, a), _tile_visual(roi, a),
                    _tile_visual(batch["roi_coors"], a), text.get("token_type_ids"),
-                   text["attention_mask"], text["added_mask"])
+                   text["attention_mask"], text["added_mask"], rng=rng)
     return logits.reshape(b, a, -1)
+
+
+def finetune_loss(model: FCMF, visual: VisualFeatures, batch: Batch,
+                  rng: Optional[DropoutRng] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, accuracy) of one batch: CE in f32, mean over the batch per
+    aspect, summed over the aspects; accuracy over all B x A views."""
+    logits = fcmf_forward_all_aspects(model, visual, batch, rng)
+    labels = batch["labels"].long()
+    ce = F.cross_entropy(logits.float().flatten(0, 1), labels.flatten(),
+                         reduction="none").reshape(labels.shape)
+    acc = (logits.argmax(-1) == labels).float().mean()
+    return ce.mean(0).sum(), acc
+
+
+def make_finetune_train_step(state: TrainState) -> Callable:
+    """-> step(batch, seed) = metrics {"loss", "accuracy"} as device tensors.
+
+    One step: the model in training mode with dropout drawn from generators
+    derived from (seed, state.step), the loss, its backward (K1's backward
+    kernel in the text encoder), and one optimizer step.  Nothing in it
+    waits on the device."""
+
+    def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
+        state.model.train()
+        rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device)
+        loss, acc = finetune_loss(state.model, state.visual, batch, rng)
+        loss.backward()
+        state.apply_gradients()
+        return {"loss": loss.detach(), "accuracy": acc}
+
+    return step
 
 
 def make_finetune_eval_step(model: FCMF, visual: VisualFeatures) -> Callable:
     """-> step(batch) = (preds [B, A], logits [B, A, num_labels]), run
-    under `torch.inference_mode()`."""
+    deterministically under `torch.inference_mode()`, whatever mode the
+    model was left in (it is restored after the call)."""
 
     def step(batch: Batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        with torch.inference_mode():
-            logits = fcmf_forward_all_aspects(model, visual, batch)
-            return logits.argmax(-1), logits
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode():
+                logits = fcmf_forward_all_aspects(model, visual, batch)
+                return logits.argmax(-1), logits
+        finally:
+            model.train(was_training)
 
     return step

@@ -18,7 +18,7 @@ from macsa_tpu_torch.models.resnet import VisualFeatures
 from macsa_tpu_torch.ops import cuda_lib
 from macsa_tpu_torch.ops import fused_attention as fa
 from macsa_tpu_torch.ops import image_prep
-from macsa_tpu_torch.train.steps import make_finetune_eval_step
+from macsa_tpu_torch.train.steps import finetune_loss, make_finetune_eval_step
 
 pytestmark = pytest.mark.gpu
 MASKS = {"neg10000": -10000.0, "finfo_min": float(np.finfo(np.float32).min)}
@@ -56,6 +56,44 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol, mask_kind, heads, hea
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
 
 
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+# relative to max|ref|.  f32: summation order only.  bf16: the kernels and
+# the plain versions round at the same points (probs before P@V and dV, ds
+# before dQ/dK), but one flipped rounding of a bf16 operand moves a sum by
+# one bf16 ulp of that term; the plain forward also rounds the scores to bf16
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("heads,head_dim", [(12, 64), (4, 32)])
+@pytest.mark.parametrize("l", [40, 170, 514])
+def test_attention_forward_and_backward_kernels_match_plain(cuda, dtype, tol, rate, heads,
+                                                            head_dim, l):
+    g = torch.Generator(cuda).manual_seed(1)
+    b, seed = 3, 1234
+    q, k, v, gout = (torch.randn(b, l, heads * head_dim, device=cuda, generator=g).to(dtype)
+                     for _ in range(4))
+    lens = torch.tensor([l, 1, l // 3], device=cuda)
+    mask = torch.zeros(b, l, device=cuda).masked_fill(
+        torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
+    qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+    before = dict(cuda_lib.launch_counts)
+    out = fa.fused_self_attention(qg, kg, vg, mask, heads, rate, seed)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["fused_self_attention"] == \
+        before.get("fused_self_attention", 0) + 1
+    assert cuda_lib.launch_counts["fused_self_attention_bwd"] == \
+        before.get("fused_self_attention_bwd", 0) + 1
+    want = fa.attention_reference(q, k, v, mask, heads, rate, seed)
+    assert _rel_err(out, want) <= tol
+    wants = fa.attention_backward_reference(q, k, v, mask, gout, heads, rate, seed)
+    for name, got, w in zip("qkv", (qg.grad, kg.grad, vg.grad), wants):
+        assert got.dtype == dtype
+        assert _rel_err(got, w) <= tol, name
+
+
 def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q = torch.zeros(2, 40, 96, device=cuda)
     mask = torch.zeros(2, 40, device=cuda)
@@ -65,6 +103,8 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa.fused_self_attention(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, mask, 3)
     with pytest.raises(TypeError):
         fa.fused_self_attention(q.half(), q.half(), q.half(), mask, 3)
+    with pytest.raises(ValueError):  # not a dropout rate
+        fa.fused_self_attention(q, q, q, mask, 3, rate=1.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -85,11 +125,11 @@ def test_normalize_kernels_match_plain(cuda, dtype):
         assert torch.equal(got, want)
 
 
-def test_eval_step_on_gpu_matches_cpu(cuda):
-    """The eval step on the card (both kernels) against the same weights
-    and batch on the CPU (their plain versions), f32 with TF32 off."""
+def _small_model_and_batch(**dropout):
+    """A 2-layer FCMF at width 128 (head dim 32, one the kernels take), a
+    small ResNet, and a loader-shaped batch with labels, all on the CPU."""
     kw = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
-              intermediate_size=256)  # head dim 32, one the kernel takes
+              intermediate_size=256, **dropout)
     cfg = config.FCMFConfig(
         model=config.ModelConfig(**kw),
         text=config.TextEncoderConfig(vocab_size=64, max_position_embeddings=64, **kw),
@@ -113,8 +153,15 @@ def test_eval_step_on_gpu_matches_cpu(cuda):
         "token_type_ids": np.zeros((b, a, l), np.int32),
         "attention_mask": attn,
         "added_mask": np.ones((b, a, l + 4), np.int32),
+        "labels": rng.integers(0, 4, size=(b, a)).astype(np.int32),
     }
-    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    return model, visual, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def test_eval_step_on_gpu_matches_cpu(cuda):
+    """The eval step on the card (both kernels) against the same weights
+    and batch on the CPU (their plain versions), f32 with TF32 off."""
+    model, visual, batch = _small_model_and_batch()
     want_preds, want = make_finetune_eval_step(model, visual)(batch)
     cuda_lib.reset_launch_counts()
     preds, logits = make_finetune_eval_step(model.to(cuda), visual.to(cuda))(
@@ -124,3 +171,33 @@ def test_eval_step_on_gpu_matches_cpu(cuda):
     assert cuda_lib.launch_counts["device_normalize"] == 2
     torch.testing.assert_close(logits.cpu(), want, rtol=0, atol=1e-3)
     assert torch.equal(preds.cpu(), want_preds)
+
+
+def test_train_step_gradients_on_gpu_match_cpu(cuda):
+    """The train step's loss and gradients at dropout 0 on the card (K1's
+    forward and backward kernels, K2) against the CPU (plain versions),
+    f32 with TF32 off: summation order only, 1e-4 of each parameter's
+    largest gradient."""
+    model, visual, batch = _small_model_and_batch(hidden_dropout_prob=0.0,
+                                                  attention_probs_dropout_prob=0.0)
+    model.train()
+    loss, acc = finetune_loss(model, visual, batch)
+    loss.backward()
+    want = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    model, visual = model.to(cuda), visual.to(cuda)
+    cuda_lib.reset_launch_counts()
+    got_loss, got_acc = finetune_loss(model, visual, {k: v.to(cuda) for k, v in batch.items()})
+    got_loss.backward()
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launch_counts) == {"fused_self_attention": 2,
+                                            "fused_self_attention_bwd": 2,
+                                            "device_normalize": 2}
+    torch.testing.assert_close(got_loss.cpu(), loss.detach(), rtol=1e-5, atol=0)
+    assert got_acc.item() == acc.item()
+    for name, p in model.named_parameters():
+        if name not in want:
+            assert p.grad is None, name
+            continue
+        tol = max(1e-4 * want[name].abs().max().item(), 1e-7)
+        torch.testing.assert_close(p.grad.cpu(), want[name], rtol=0, atol=tol, msg=name)

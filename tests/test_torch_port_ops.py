@@ -75,12 +75,16 @@ def test_attention_padded_keys_are_dropped(rng):
 
 
 def test_attention_cpu_wrapper_launches_nothing_and_rejects_dropout(rng):
-    q, k, v, mask = (torch.from_numpy(x) for x in _qkv_mask(rng))
+    """On the CPU the wrapper runs the plain version, with dropout too, and
+    launches nothing; a rate outside [0, 1) is rejected."""
+    q, k, v, mask = (torch.from_numpy(x).requires_grad_(True) for x in _qkv_mask(rng))
     cuda_lib.reset_launch_counts()
-    tfa.fused_self_attention(q, k, v, mask, H)
-    assert cuda_lib.launch_counts["fused_self_attention"] == 0
-    with pytest.raises(NotImplementedError):
-        tfa.fused_self_attention(q, k, v, mask, H, rate=0.1)
+    tfa.fused_self_attention(q, k, v, mask.detach(), H)
+    tfa.fused_self_attention(q, k, v, mask.detach(), H, rate=0.1, seed=3).sum().backward()
+    assert not cuda_lib.launch_counts
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError):
+            tfa.fused_self_attention(q, k, v, mask.detach(), H, rate=rate)
 
 
 def _frames(rng, lead=(2, 3), size=8):

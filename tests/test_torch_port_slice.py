@@ -35,7 +35,8 @@ KW = dict(num_imgs=2, num_roi=2, num_patches=4, visual_feat_dim=128,
 RESNET_KW = dict(stage_sizes=(1, 1, 1, 1), num_filters=4, grid_size=2, dtype="float32")
 SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attention",
                  "models.layers", "models.text_encoder", "models.box_attention",
-                 "models.resnet", "models.fcmf", "train.steps", "train.jax_import")
+                 "models.resnet", "models.fcmf", "train.optim", "train.state", "train.steps",
+                 "train.jax_import")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
