@@ -89,7 +89,9 @@ class FCMFConfig:
     box_heads: int = 8  # roi_modeling.py BoxMultiHeadedAttention(8, 768)
     # decoder cross-attention mask semantics (Phase 1; not ported yet)
     decoder_cross_mask_mode: str = "causal_quirk"
-    # fused geometric ROI attention kernel; not ported yet, must stay False
+    # run the box head's attention core through kernel K3
+    # (ops/box_attention.py) when its dropout is not active; off by default
+    # as in the JAX package
     use_pallas_box_attention: bool = False
     # Multimodal Denoising Encoder; not ported yet, must stay False
     use_mde: bool = False

@@ -4,9 +4,11 @@ Counterpart of `macsa_tpu/models/box_attention.py` (reference:
 fcmf_framework/roi_modeling.py): pairwise box displacement log-ratios ->
 64-d sinusoidal embedding -> per-head ReLU gates, and log(max(gate, 1e-6))
 added to the scaled-dot scores before the softmax, and dropout on the
-probabilities in training.  This is the plain path that FCMF runs (no
-mask, trigonometric embedding); the fused box-attention kernel of the JAX
-package is not ported yet.
+probabilities in training.  FCMF runs it with no mask and the
+trigonometric embedding.  With `use_pallas_kernel` (the JAX option's name)
+the scores, log-gates, softmax and P @ V run as kernel K3
+(`ops/box_attention.py`) whenever dropout is not active, as in the JAX
+module; otherwise the plain path below runs.
 Parameter names are the reference's: `linears.{0..3}` (q/k/v/out) and
 `WGs.{0..h-1}`, the per-head gates, run as one stacked matmul.
 """
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from macsa_tpu_torch.models.layers import Dense, DropoutRng, dropout
+from macsa_tpu_torch.ops.box_attention import fused_box_attention
 
 GEO_CLAMP_MIN = 1e-6  # roi_modeling.py:40
 DIM_G = 64  # geometric embedding width
@@ -57,11 +60,12 @@ class BoxMultiHeadedAttention(nn.Module):
 
     def __init__(self, num_heads: int, d_model: int,
                  compute_dtype: torch.dtype = torch.float32, dropout_rate: float = 0.1,
-                 device=None):
+                 use_pallas_kernel: bool = False, device=None):
         super().__init__()
         self.num_heads, self.d_model = num_heads, d_model
         self.compute_dtype = compute_dtype
         self.dropout_rate = dropout_rate
+        self.use_pallas_kernel = use_pallas_kernel
         self.linears = nn.ModuleList(Dense(d_model, d_model, compute_dtype, device=device)
                                      for _ in range(4))
         self.WGs = nn.ModuleList(Dense(DIM_G, 1, compute_dtype, device=device)
@@ -84,11 +88,20 @@ class BoxMultiHeadedAttention(nn.Module):
         wg_weight = torch.cat([g.weight for g in self.WGs]).to(dt)
         wg_bias = torch.cat([g.bias for g in self.WGs]).to(dt)
         w_g = F.relu(F.linear(geo, wg_weight, wg_bias)).permute(0, 3, 1, 2)
+        b, _, n, _ = q.shape
+
+        drop_active = self.training and rng is not None and self.dropout_rate > 0.0
+        if self.use_pallas_kernel and not drop_active:
+            def fold(x):  # [B, h, ...] -> [B*h, ...], the JAX module's fold order
+                return x.reshape((b * h,) + tuple(x.shape[2:])).contiguous()
+
+            out = fused_box_attention(fold(q), fold(k), fold(v), fold(w_g))
+            out = out.reshape(b, h, n, d_k).transpose(1, 2).reshape(b, n, self.d_model)
+            return self.linears[3](out)
 
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float() / math.sqrt(d_k)
         scores = scores + torch.log(torch.clamp(w_g.float(), min=GEO_CLAMP_MIN))
         probs = dropout(torch.softmax(scores, dim=-1), self.dropout_rate,
                         rng if self.training else None)
         out = torch.einsum("bhqk,bhkd->bhqd", probs.to(dt), v)
-        b, _, n, _ = out.shape
         return self.linears[3](out.transpose(1, 2).reshape(b, n, self.d_model))

@@ -54,8 +54,6 @@ class FCMFEncoder(nn.Module):
         super().__init__()
         if config.use_mde:
             raise NotImplementedError("the Multimodal Denoising Encoder is not ported yet")
-        if config.use_pallas_box_attention:
-            raise NotImplementedError("the fused box-attention kernel is not ported yet")
         self.config = config
         mc = config.model
         h, dt = mc.hidden_size, mc.torch_dtype
@@ -64,6 +62,7 @@ class FCMFEncoder(nn.Module):
         self.roimap2text = layers.Dense(config.visual_feat_dim, h, dt, device=device)
         self.box_head = BoxMultiHeadedAttention(config.box_heads, h, dt,
                                                 mc.attention_probs_dropout_prob,
+                                                config.use_pallas_box_attention,
                                                 device=device)
         self.text2img_attention = layers.BertCrossEncoder(mc, device=device)
         self.text2img_pooler = layers.TokenPooler(mc, device=device)

@@ -50,10 +50,13 @@ class FrozenBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The f32 per-channel (mul, add) of the frozen statistics."""
         inv = torch.rsqrt(self.running_var + self.eps)
-        mul = (self.weight * inv).to(self.compute_dtype)
-        add = (self.bias - self.running_mean * self.weight * inv).to(self.compute_dtype)
+        return self.weight * inv, self.bias - self.running_mean * self.weight * inv
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul, add = (t.to(self.compute_dtype) for t in self.affine())
         return x * mul.view(1, -1, 1, 1) + add.view(1, -1, 1, 1)
 
 

@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-Every `*.cu` file under `macsa_tpu_torch/csrc/` is compiled by `nvcc` into
-ONE shared library with a plain C interface, loaded with `ctypes`.  The
+Every `*.cu` file under `macsa_tpu_torch/csrc/` is compiled by its own
+`nvcc` process, all started together, and the objects are linked into ONE
+shared library with a plain C interface, loaded with `ctypes`.  The
 build runs at first use, from the checkout's sources only, into
 `macsa_tpu_torch/_build/`; the library's file name carries a hash of the
 sources and flags, so an edited source rebuilds.  A missing or failing
@@ -29,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -50,6 +51,12 @@ _SIGNATURES = {
     "macsa_unpack_normalize": [_P, _P, _LL, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     # bytes, out, n, bf16, inv255, mean[3], inv_std[3], stream
     "macsa_normalize_u8": [_P, _P, _LL, _I, _F, _F, _F, _F, _F, _F, _F, _P],
+    # q, k, v, gates, out, bh, n, d, bf16, stream
+    "macsa_box_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, mul, add, residual (or NULL), out, m, n, k, relu, bf16, stream
+    "macsa_matmul_bn_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out, n, h, w, c, f, bf16, stream
+    "macsa_fused_bottleneck": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 
@@ -80,17 +87,46 @@ def build_library(build_dir: Path = BUILD_DIR, nvcc: str | None = None) -> Path:
         return out
     nvcc = nvcc or find_nvcc()
     Path(build_dir).mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objects = [Path(build_dir) / f"{tag}.{src.stem}.o" for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objects)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        for cmd, proc in zip(compiles, _run_all(compiles)):
+            _check_build(cmd, proc)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        _check_build(link, subprocess.run(link, capture_output=True, text=True))
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    os.replace(tmp, out)
+    return out
+
+
+def _run_all(cmds: list) -> list:
+    """Start every command at once; wait for all.  -> CompletedProcess list."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True))
     except OSError as e:
-        raise RuntimeError(f"could not run {nvcc}: {e}") from e
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise RuntimeError(f"could not run {cmds[0][0]}: {e}") from e
+    done = []
+    for cmd, p in zip(cmds, procs):
+        stdout, stderr = p.communicate()
+        done.append(subprocess.CompletedProcess(cmd, p.returncode, stdout, stderr))
+    return done
+
+
+def _check_build(cmd: list, proc: subprocess.CompletedProcess) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
 
 
 @functools.cache

@@ -1,0 +1,240 @@
+"""A 1x1 conv with its frozen-BN epilogue (K4) and the whole stride-1
+identity ResNet bottleneck (K5).
+
+Counterpart of the kernel half of `tools_dev/fused_resnet_experiment.py`
+(`fused_matmul_bn_act`, `fused_bottleneck` and their custom VJPs).
+Activations are NHWC rows: x2 is [n*h*w, C], the row view of a
+channels-last tensor (`permute(0, 2, 3, 1).reshape(-1, C)` copies
+nothing).  Weights are [in, out] matrices: w [K, N] for K4; w1 [C, F],
+w2 [9, F, F] (the 3x3 taps in dy*3+dx order) and w3 [F, C] for K5.  Each
+(mul, add) is the f32 frozen-BatchNorm affine of one conv.
+
+On a CUDA tensor the wrappers launch the hand-written kernels
+(`macsa_tpu_torch/csrc/fused_resnet.cu`), K5 as one launch per
+bottleneck with its intermediates kept on chip.  Under autograd K4's
+gradient is `fused_matmul_bn_act_backward_reference` (the JAX `_bwd`) and
+K5's is PyTorch autograd through `bottleneck_reference` (the JAX `_bneck_bwd`
+takes `jax.vjp` of `_bottleneck_ref`).  On a CPU tensor they run the
+plain versions, and autograd differentiates those.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from macsa_tpu_torch.ops import cuda_lib
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def fused_matmul_bn_act_reference(x2: torch.Tensor, w: torch.Tensor, mul: torch.Tensor,
+                                  add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                                  relu: bool = True) -> torch.Tensor:
+    """Plain version of K4: relu?((x2 @ w) * mul + add [+ residual]) with an
+    f32 product and epilogue, returned in x2's dtype."""
+    y = (x2.float() @ w.float()) * mul.float() + add.float()
+    if residual is not None:
+        y = y + residual.float()
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(x2.dtype)
+
+
+def fused_matmul_bn_act_backward_reference(x2: torch.Tensor, w: torch.Tensor,
+                                           mul: torch.Tensor, add: torch.Tensor,
+                                           y: torch.Tensor, g: torch.Tensor,
+                                           has_residual: bool, relu: bool):
+    """(dx2, dw, dmul, dadd, dresidual or None) for the cotangent g of K4's
+    output y (the JAX `_bwd`): the ReLU mask from the saved output, the
+    BN-affine gradients from a recomputed f32 product."""
+    g = g.float()
+    if relu:
+        g = torch.where(y > 0, g, 0.0)
+    dres = g.to(x2.dtype) if has_residual else None
+    gm = (g * mul.float()).to(x2.dtype)
+    dx = (gm.float() @ w.float().t()).to(x2.dtype)
+    dw = (x2.float().t() @ gm.float()).to(w.dtype)
+    acc = x2.float() @ w.float()
+    dmul = (g * acc).sum(0).to(mul.dtype)
+    dadd = g.sum(0).to(add.dtype)
+    return dx, dw, dmul, dadd, dres
+
+
+def bottleneck_reference(x2: torch.Tensor, w1: torch.Tensor, mul1: torch.Tensor,
+                         add1: torch.Tensor, w2: torch.Tensor, mul2: torch.Tensor,
+                         add2: torch.Tensor, w3: torch.Tensor, mul3: torch.Tensor,
+                         add3: torch.Tensor, n: int, h: int, w: int) -> torch.Tensor:
+    """Plain version of K5 (`_bottleneck_ref`) with its rounding points, the
+    weights cast to x2's dtype as `_bneck_fwd` casts them: the conv1 and
+    conv3 products leave their matmuls in x2's dtype before the f32
+    epilogues, conv2 sums in f32, a1 and a2 are cast to x2's dtype, the
+    residual is added in f32.  [n*h*w, C] -> [n*h*w, C]."""
+    dt = x2.dtype
+    f = w1.shape[1]
+    a1 = torch.clamp_min((x2 @ w1.to(dt)).float() * mul1 + add1, 0.0).to(dt)
+    a1 = a1.reshape(n, h, w, f).permute(0, 3, 1, 2)
+    k2 = w2.to(dt).reshape(3, 3, f, f).permute(3, 2, 0, 1)  # [out, in, dy, dx]
+    conv = F.conv2d(a1.float(), k2.float(), padding=1).permute(0, 2, 3, 1).reshape(-1, f)
+    a2 = torch.clamp_min(conv * mul2 + add2, 0.0).to(dt)
+    y = (a2 @ w3.to(dt)).float() * mul3 + add3 + x2.float()
+    return torch.clamp_min(y, 0.0).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _check_tensors(dtype, named) -> None:
+    """Each (name, tensor, dtype or None = `dtype`, shape) in `named` is
+    contiguous, on the device of the first, with its dtype and shape."""
+    device = named[0][1].device
+    for name, t, want_dtype, shape in named:
+        want_dtype = want_dtype or dtype
+        if t.dtype != want_dtype:
+            raise TypeError(f"{name} must be {want_dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_dtype(x2: torch.Tensor) -> None:
+    if x2.dtype not in _DTYPES:
+        raise TypeError(f"x2 must be one of {_DTYPES}, got {x2.dtype}")
+    if x2.dim() != 2:
+        raise ValueError(f"x2 must be [rows, channels], got {tuple(x2.shape)}")
+
+
+def _launch_k4(x2, w, mul, add, residual, relu) -> torch.Tensor:
+    m, k = x2.shape
+    n = w.shape[-1]
+    f32 = torch.float32
+    named = [("x2", x2, None, (m, k)), ("w", w, None, (k, n)),
+             ("mul", mul, f32, (n,)), ("add", add, f32, (n,))]
+    if residual is not None:
+        named.append(("residual", residual, None, (m, n)))
+    _check_tensors(x2.dtype, named)
+    if k == 0:
+        raise ValueError(f"empty product [{m}, 0] @ [0, {n}]")
+    out = torch.empty(m, n, dtype=x2.dtype, device=x2.device)
+    if out.numel() == 0:
+        return out
+    status = cuda_lib.library().macsa_matmul_bn_act(
+        x2.data_ptr(), w.data_ptr(), mul.data_ptr(), add.data_ptr(),
+        None if residual is None else residual.data_ptr(), out.data_ptr(), m, n, k,
+        int(relu), int(x2.dtype == torch.bfloat16), cuda_lib.stream_handle(x2.device))
+    cuda_lib.check(status, "macsa_matmul_bn_act")
+    cuda_lib.launch_counts["fused_matmul_bn_act"] += 1
+    return out
+
+
+class _FusedMatmulBnAct(torch.autograd.Function):
+    """K4's kernel forward; `fused_matmul_bn_act_backward_reference` as its
+    gradient (the custom VJP of the JAX experiment)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, mul, add, residual, relu):
+        y = _launch_k4(x2, w, mul, add, residual, relu)
+        ctx.save_for_backward(x2, w, mul, add, y)
+        ctx.has_residual, ctx.relu = residual is not None, relu
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, mul, add, y = ctx.saved_tensors
+        grads = fused_matmul_bn_act_backward_reference(x2, w, mul, add, y, g,
+                                                       ctx.has_residual, ctx.relu)
+        return (*grads, None)
+
+
+def fused_matmul_bn_act(x2: torch.Tensor, w: torch.Tensor, mul: torch.Tensor,
+                        add: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                        relu: bool = True) -> torch.Tensor:
+    """relu?((x2 @ w) * mul + add [+ residual]): a 1x1 conv over NHWC rows
+    with its frozen-BN epilogue.  x2 [M, K]; w [K, N] in x2's dtype;
+    mul/add [N] f32; residual [M, N] in x2's dtype or None.  Returns
+    [M, N] in x2's dtype, with an f32 product and epilogue."""
+    if x2.device.type == "cpu":
+        return fused_matmul_bn_act_reference(x2, w, mul, add, residual, relu)
+    if x2.device.type != "cuda":
+        raise ValueError(f"unsupported device {x2.device}")
+    _check_dtype(x2)
+    inputs = (x2, w, mul, add) + (() if residual is None else (residual,))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _FusedMatmulBnAct.apply(x2, w, mul, add, residual, relu)
+    return _launch_k4(x2, w, mul, add, residual, relu)
+
+
+def _launch_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w) -> torch.Tensor:
+    rows, c = x2.shape
+    f = w1.shape[-1]
+    f32 = torch.float32
+    if rows != n * h * w or rows == 0:
+        raise ValueError(f"x2 has {rows} rows, not n*h*w = {n}*{h}*{w} > 0")
+    _check_tensors(x2.dtype, [
+        ("x2", x2, None, (rows, c)), ("w1", w1, None, (c, f)), ("mul1", mul1, f32, (f,)),
+        ("add1", add1, f32, (f,)), ("w2", w2, None, (9, f, f)), ("mul2", mul2, f32, (f,)),
+        ("add2", add2, f32, (f,)), ("w3", w3, None, (f, c)), ("mul3", mul3, f32, (c,)),
+        ("add3", add3, f32, (c,))])
+    out = torch.empty_like(x2)
+    status = cuda_lib.library().macsa_fused_bottleneck(
+        *(t.data_ptr() for t in (x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out)),
+        n, h, w, c, f, int(x2.dtype == torch.bfloat16), cuda_lib.stream_handle(x2.device))
+    cuda_lib.check(status, "macsa_fused_bottleneck")
+    cuda_lib.launch_counts["fused_bottleneck"] += 1
+    return out
+
+
+class _FusedBottleneck(torch.autograd.Function):
+    """K5's kernel forward; autograd through `bottleneck_reference` as its
+    gradient (the JAX `_bneck_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w):
+        ctx.save_for_backward(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3)
+        ctx.geometry = (n, h, w)
+        return _launch_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        needs = ctx.needs_input_grad[:10]
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, needs)]
+        with torch.enable_grad():
+            out = bottleneck_reference(*leaves, *ctx.geometry)
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return (*(next(grads) if need else None for need in needs), None, None, None)
+
+
+def fused_bottleneck(x2: torch.Tensor, w1: torch.Tensor, mul1: torch.Tensor,
+                     add1: torch.Tensor, w2: torch.Tensor, mul2: torch.Tensor,
+                     add2: torch.Tensor, w3: torch.Tensor, mul3: torch.Tensor,
+                     add3: torch.Tensor, n: int, h: int, w: int) -> torch.Tensor:
+    """One ResNet bottleneck (stride 1, identity shortcut) over NHWC rows:
+    relu(bn3(conv3(relu(bn2(conv2(relu(bn1(conv1(x)))))))) + x).
+
+    x2 [n*h*w, C]; w1 [C, F], w2 [9, F, F], w3 [F, C], cast to x2's dtype
+    here (differentiably, as `_bneck_fwd` casts them); mul*/add* the f32 BN
+    affines.  Returns [n*h*w, C] in x2's dtype."""
+    dt = x2.dtype
+    weights = (w1.to(dt).contiguous(), w2.to(dt).contiguous(), w3.to(dt).contiguous())
+    affines = tuple(t.float().contiguous() for t in (mul1, add1, mul2, add2, mul3, add3))
+    args = (x2, weights[0], *affines[0:2], weights[1], *affines[2:4], weights[2], *affines[4:6])
+    if x2.device.type == "cpu":
+        return bottleneck_reference(*args, n, h, w)
+    if x2.device.type != "cuda":
+        raise ValueError(f"unsupported device {x2.device}")
+    _check_dtype(x2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedBottleneck.apply(*args, n, h, w)
+    return _launch_k5(*args, n, h, w)

@@ -34,9 +34,10 @@ KW = dict(num_imgs=2, num_roi=2, num_patches=4, visual_feat_dim=128,
           max_text_len=L, box_heads=8)
 RESNET_KW = dict(stage_sizes=(1, 1, 1, 1), num_filters=4, grid_size=2, dtype="float32")
 SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attention",
-                 "models.layers", "models.text_encoder", "models.box_attention",
-                 "models.resnet", "models.fcmf", "train.optim", "train.state", "train.steps",
-                 "train.jax_import")
+                 "ops.box_attention", "ops.fused_resnet", "models.layers",
+                 "models.text_encoder", "models.box_attention", "models.resnet",
+                 "models.fused_backbone", "models.fcmf", "train.optim", "train.state",
+                 "train.steps", "train.jax_import")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
