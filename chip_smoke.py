@@ -8,8 +8,13 @@ toolkit (`nvcc`).  It builds the port's kernels from `macsa_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the shapes of the
 paths below (K2; K1's forward and backward with dropout on and off; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
-frozen-BN epilogue, and K5, the whole identity bottleneck, at ResNet-152
-stage 3 over 280 images), then, at the full width of the FCMF model
+frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
+whole identity bottleneck, at all four stages; in bf16 both must run their
+tensor-core variants), times each beside its plain version, its bound on
+the card (bytes moved over the memory rate, or operations over the peak
+rate of their type) and, where one PyTorch call computes the same function,
+that call (`library_ms`: a yardstick only, the port never calls it), then,
+at the full width of the FCMF model
 (ViSoBERT-sized 12-layer text encoder at L=170, ResNet-152 over 7 images
 and 28 ROI crops per sample, batch 8, random weights from a seed):
 * runs `make_finetune_eval_step` (the serving forward),
@@ -37,11 +42,38 @@ import sys
 import time
 
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 5, 10
-# ResNet-152 stage 3 over one serving batch: 8 x (7 images + 28 ROI crops)
-STAGE3_IMAGES, STAGE3_HW, STAGE3_C, STAGE3_F = BATCH * (7 + 28), 14, 1024, 256
+STAGE3_IMAGES = BATCH * (7 + 28)  # one serving batch: 8 x (7 images + 28 ROI crops)
+
+
+# (h = w, C, F) of the identity bottlenecks of ResNet-152's four stages at 224^2
+RESNET_STAGES = {1: (56, 256, 64), 2: (28, 512, 128), 3: (14, 1024, 256), 4: (7, 2048, 512)}
+# published peaks of one H100 SXM: device memory rate, dense bf16 tensor-core
+# rate, f32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes (each
+    input read once, each output written once) over the memory rate and the
+    operations over the peak rate of `dtype`."""
+    by_ops, by_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(by_ops, by_bytes),
+            "bound_by": "operations" if by_ops > by_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def bound_text(b: dict) -> str:
+    return (f"bound_ms={b['bound_ms']:.4f} by {b['bound_by']} ({b['flops'] / 1e9:.4g} GFLOP, "
+            f"{b['bytes'] / 1e6:.4g} MB)")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -104,14 +136,42 @@ def phase_k2(dev, image_prep):
                                      f"(max abs err {err})")
             ms = cuda_ms(lambda: kernel(x, dtype))
             plain_ms = cuda_ms(lambda: plain(x, dtype))
-            report[(name, dtype)] = (err, ms, plain_ms)
+            # an invalid frame needs only its validity word read; every
+            # output element is written; scale, subtract, scale per element
+            read = nbytes(x) if valid is None else \
+                int(valid.sum()) * nbytes(x[(0,) * valid.dim()]) + int((~valid).sum()) * 4
+            b = bound(3.0 * got.numel(), read + nbytes(got), torch.float32)
+            report[(name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms, **b}
             print(f"phase k2 {name} {str(dtype)[6:]} {tuple(x.shape)}: max_abs_err={err:.3g} "
-                  f"(f32 <= 1 ulp, bf16 equal) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+                  f"(f32 <= 1 ulp, bf16 equal) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"{bound_text(b)}")
     return report
 
 
+def sdpa_inputs(q, k, v, mask, heads):
+    """[B, L, H*d] q/k/v and the additive [B, L] key mask as
+    `F.scaled_dot_product_attention` takes them: [B, H, L, d] views and a
+    [B, 1, 1, L] mask in q's dtype."""
+    b, l, hd = q.shape
+    split = lambda x: x.view(b, l, heads, hd // heads).transpose(1, 2)
+    return split(q), split(k), split(v), mask.to(q.dtype)[:, None, None, :]
+
+
+def attention_bound(b, l, h, d, dtype, backward: bool) -> dict:
+    """Forward: QK^T and PV (4 b h l^2 d operations); q, k, v and the mask
+    read, the output written.  Backward: the scores again, dP, dV, dQ, dK
+    (10 b h l^2 d); q, k, v, the output's gradient, the mask and the two
+    f32 row terms read, dq, dk, dv written."""
+    size = torch.finfo(dtype).bits // 8
+    tensor = b * l * h * d * size
+    if backward:
+        return bound(10.0 * b * h * l * l * d, 7 * tensor + b * l * 4 + 2 * b * h * l * 4, dtype)
+    return bound(4.0 * b * h * l * l * d, 4 * tensor + b * l * 4, dtype)
+
+
 def phase_k1(dev, fa):
-    """K1 against its plain version at the text encoder's serving shape."""
+    """K1 against its plain version at the text encoder's serving shape,
+    beside `F.scaled_dot_product_attention` with the same additive mask."""
     g = torch.Generator(dev).manual_seed(1)
     b, l, h, d = BATCH * NUM_ASPECTS, 170, 12, 64
     lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
@@ -134,10 +194,21 @@ def phase_k1(dev, fa):
                 raise AssertionError(f"K1 {dtype} mask {neg_name}: max abs err {err} > {atol}")
             ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h))
             plain_ms = cuda_ms(lambda: fa.attention_reference(qc, kc, vc, mask, h))
-            report[(neg_name, dtype)] = (err, ms, plain_ms)
+            q4, k4, v4, m4 = sdpa_inputs(qc, kc, vc, mask, h)
+            lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+            lib_err = (lib.transpose(1, 2).reshape(b, l, h * d).float()
+                       - want.float()).abs().max().item()
+            if not lib_err <= 5 * atol:
+                raise AssertionError(f"SDPA is not the same function: {lib_err}")
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                        attn_mask=m4))
+            bd = attention_bound(b, l, h, d, dtype, backward=False)
+            report[(neg_name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                         "library_ms": library_ms, **bd}
             print(f"phase k1 {str(dtype)[6:]} mask {neg_name} [{b},{l},{h * d}] h={h}: "
                   f"max_abs_err={err:.3g} (atol {atol}) kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f}")
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, additive mask) "
+                  f"{bound_text(bd)}")
     return report
 
 
@@ -189,14 +260,26 @@ def phase_k1_bwd(dev, fa):
                                                              retain_graph=True))
                 bwd_plain = cuda_ms(lambda: fa.attention_backward_reference(
                     qc, kc, vc, mask, gc, h, rate, seed))
-                report[(neg_name, dtype, rate)] = (abs_err, fwd_ms, fwd_plain, bwd_ms,
-                                                   bwd_plain)
+                library_ms = None
+                if rate == 0.0:  # SDPA's own dropout draws another mask
+                    q4, k4, v4, m4 = sdpa_inputs(*leaves, mask, h)
+                    lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+                    g4 = sdpa_inputs(gc, gc, gc, mask, h)[0]
+                    library_ms = cuda_ms(lambda: torch.autograd.grad(lib, leaves, g4,
+                                                                     retain_graph=True))
+                    del lib
+                bd = attention_bound(b, l, h, d, dtype, backward=True)
+                report[(neg_name, dtype, rate)] = {
+                    "err": abs_err, "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain, "ms": bwd_ms,
+                    "plain_ms": bwd_plain, "library_ms": library_ms, **bd}
                 print(f"phase k1_bwd {str(dtype)[6:]} rate {rate} mask {neg_name} "
                       f"[{b},{l},{h * d}] h={h}: rel_err "
                       + " ".join(f"{n}={e:.3g}" for n, e in rel_err.items())
                       + f" (tol {tol} of max|ref|); fwd kernel_ms={fwd_ms:.4f} "
                       f"plain_ms={fwd_plain:.4f}; bwd kernel_ms={bwd_ms:.4f} "
-                      f"plain_ms={bwd_plain:.4f}")
+                      f"plain_ms={bwd_plain:.4f} library_ms="
+                      + ("none" if library_ms is None else f"{library_ms:.4f} (SDPA backward)")
+                      + f" {bound_text(bd)}")
     return report
 
 
@@ -236,11 +319,13 @@ def phase_k3(dev, ba):
                                  f"at a zero gate")
         ms = cuda_ms(lambda: ba.fused_box_attention(qc, kc, vc, gc))
         plain_ms = cuda_ms(lambda: ba.box_attention_reference(qc, kc, vc, gc))
-        report[dtype] = (err, ms, plain_ms)
+        # scores and the weighted sum: 4 bh n^2 d operations
+        bd = bound(4.0 * bh * n * n * d, nbytes(qc, kc, vc, gc, want), dtype)
+        report[dtype] = {"err": err, "ms": ms, "plain_ms": plain_ms, **bd}
         print(f"phase k3 {str(dtype)[6:]} [{bh},{n},{d}] gates {gc.eq(0).float().mean():.3f} "
               f"zero: max_abs_err={err:.3g} (atol {atol} + rtol {rtol}); backward rel err "
               f"{grad_err:.3g}, zero dgates at zero gates; kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f}")
+              f"plain_ms={plain_ms:.4f} {bound_text(bd)}")
     return report
 
 
@@ -257,10 +342,12 @@ def phase_k4(dev, cuda_lib, fr):
     3 over 280 images.  No path of the JAX package or of the port calls K4
     (the JAX runner uses K5 only), so this phase drives it: one call per
     case and dtype, with the counts set to 0 just before and read just
-    after, then the comparisons and the timing."""
+    after (the bf16 cases must have run the tensor-core variant, the f32
+    ones the CUDA-core variant), then the comparisons and the timing,
+    beside a bf16 `torch.mm` followed by the epilogue's elementwise passes."""
     g = torch.Generator(dev).manual_seed(10)
-    m = STAGE3_IMAGES * STAGE3_HW * STAGE3_HW
-    c, f = STAGE3_C, STAGE3_F
+    hw, c, f = RESNET_STAGES[3]
+    m = STAGE3_IMAGES * hw * hw
     cases = {f"conv1 [{m},{c}]->{f} relu": (c, f, False, True),
              f"conv3 [{m},{f}]->{c} +res relu": (f, c, True, True),
              f"conv3 [{m},{f}]->{c} +res": (f, c, True, False)}
@@ -280,6 +367,17 @@ def phase_k4(dev, cuda_lib, fr):
     outs = {key: fr.fused_matmul_bn_act(*args) for key, args in calls.items()}
     torch.cuda.synchronize()
     launches = cuda_lib.launch_counts["fused_matmul_bn_act"]
+    variants = {v: cuda_lib.launch_counts[f"fused_matmul_bn_act.{v}"] for v in ("wgmma", "simt")}
+    if variants != {"wgmma": len(cases), "simt": len(cases)}:
+        raise AssertionError(f"K4 variants {variants}: the bf16 cases must run on the tensor "
+                             f"cores, the f32 ones on the CUDA cores")
+
+    def library(x, w, mul, add, res, relu):
+        y = torch.mm(x, w).float() * mul + add
+        if res is not None:
+            y = y + res.float()
+        return (torch.clamp_min(y, 0.0) if relu else y).to(x.dtype)
+
     report = {}
     for (name, dtype), args in calls.items():
         got, want = outs.pop((name, dtype)), fr.fused_matmul_bn_act_reference(*args)
@@ -291,10 +389,19 @@ def phase_k4(dev, cuda_lib, fr):
         del got, want
         ms = cuda_ms(lambda: fr.fused_matmul_bn_act(*args), iters=10)
         plain_ms = cuda_ms(lambda: fr.fused_matmul_bn_act_reference(*args), iters=10)
-        report[(name, dtype)] = (err, ms, plain_ms)
+        library_ms = None
+        if dtype == torch.bfloat16:
+            library_ms = cuda_ms(lambda: library(*args), iters=10)
+        x, w, mul, add, res, _ = args
+        bd = bound(2.0 * x.shape[0] * x.shape[1] * w.shape[1],
+                   nbytes(x, w, mul, add, res) + x.shape[0] * w.shape[1] * x.element_size(), dtype)
+        report[(name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "library_ms": library_ms, **bd}
         print(f"phase k4 {str(dtype)[6:]} {name}: max_abs_err={err:.3g} rel {rel:.3g} "
-              f"(tol {tol} of max|ref|) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    print(f"phase k4 launches driving the {len(calls)} cases: {launches}")
+              f"(tol {tol} of max|ref|) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+              + ("none" if library_ms is None else f"{library_ms:.4f} (bf16 mm + passes)")
+              + f" {bound_text(bd)}")
+    print(f"phase k4 launches driving the {len(calls)} cases: {launches} ({variants})")
     return report, launches
 
 
@@ -309,46 +416,65 @@ def random_bn_(module, g) -> None:
             bn.running_var.copy_(0.7 + 0.6 * torch.rand(n, device=dev, generator=g))
 
 
-def phase_k5(dev, layers, resnet, fused_backbone, fr):
-    """K5 against its plain version on one identity bottleneck of ResNet-152
-    stage 3 over 280 images, its weights taken from a port `Bottleneck`
-    module (random weights and frozen-BN statistics), which also runs."""
-    n, hw, c, f = STAGE3_IMAGES, STAGE3_HW, STAGE3_C, STAGE3_F
-    g = torch.Generator(dev).manual_seed(11)
-    x = torch.relu(torch.randn(n, hw, hw, c, device=dev, generator=g))  # NHWC
+def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
+    """K5 against its plain version on one identity bottleneck of each
+    ResNet-152 stage over 280 images in bf16 (the tensor-core variant), and
+    of stage 3 in f32 (the CUDA-core variant); the weights come from a port
+    `Bottleneck` module (random weights and frozen-BN statistics), whose own
+    forward on cuDNN is the library yardstick."""
+    n = STAGE3_IMAGES
     # relative to max|ref|.  f32: summation order only.  bf16: the plain
     # version rounds the conv1 and conv3 products to bf16 where the kernel
     # keeps them in f32, and a1, a2 and the output round on both sides
     tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    cases = [(3, torch.float32)] + [(stage, torch.bfloat16) for stage in RESNET_STAGES]
     report = {}
     with torch.no_grad():
-        for dtype, tol in tolerance.items():
+        for stage, dtype in cases:
+            hw, c, f = RESNET_STAGES[stage]
+            tol = tolerance[dtype]
+            g = torch.Generator(dev).manual_seed(11)
+            x2 = torch.relu(torch.randn(n * hw * hw, c, device=dev, generator=g)).to(dtype)
             block = resnet.Bottleneck(c, f, compute_dtype=dtype, device=dev)
             layers.init_weights(block, torch.Generator(dev).manual_seed(12))
             random_bn_(block, torch.Generator(dev).manual_seed(13))
             args = fused_backbone.block_args(block)
-            x2 = x.to(dtype).reshape(-1, c)
             cast = [t.to(dtype) if i in (0, 3, 6) else t for i, t in enumerate(args)]
+            cuda_lib.reset_launch_counts()
             got = fr.fused_bottleneck(x2, *args, n, hw, hw)
+            variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+            if dict(cuda_lib.launch_counts) != {"fused_bottleneck": 1,
+                                                f"fused_bottleneck.{variant}": 1}:
+                raise AssertionError(f"K5 stage {stage} {dtype}: launches "
+                                     f"{dict(cuda_lib.launch_counts)}, not one of {variant}")
             want = fr.bottleneck_reference(x2, *cast, n, hw, hw)
-            module_out = block(x2.reshape(n, hw, hw, c).permute(0, 3, 1, 2))
+            x4 = x2.reshape(n, hw, hw, c).permute(0, 3, 1, 2)
+            module_out = block(x4)
             torch.cuda.synchronize()
             err, rel = (got.float() - want.float()).abs().max().item(), rel_err(got, want)
             if not rel <= tol:
-                raise AssertionError(f"K5 {dtype}: error {rel} of max|ref| > {tol}")
+                raise AssertionError(f"K5 stage {stage} {dtype}: error {rel} of max|ref| > {tol}")
             module_rel = rel_err(got, module_out.permute(0, 2, 3, 1).reshape(-1, c))
             if dtype == torch.float32 and not module_rel <= tol:
                 raise AssertionError(f"K5 f32 vs the Bottleneck module: {module_rel}")
-            ms = cuda_ms(lambda: fr.fused_bottleneck(x2, *args, n, hw, hw), iters=3, warmup=1)
+            del got, want, module_out
+            iters = 10 if dtype == torch.bfloat16 else 3
+            ms = cuda_ms(lambda: fr.fused_bottleneck(x2, *args, n, hw, hw), iters=iters, warmup=1)
             plain_ms = cuda_ms(lambda: fr.bottleneck_reference(x2, *cast, n, hw, hw), iters=3,
                                warmup=1)
-            x4 = x2.reshape(n, hw, hw, c).permute(0, 3, 1, 2)
-            module_ms = cuda_ms(lambda: block(x4), iters=3, warmup=1)
-            report[dtype] = (err, ms, plain_ms)
-            print(f"phase k5 {str(dtype)[6:]} [{n * hw * hw},{c}] F={f} n={n} {hw}x{hw}: "
-                  f"max_abs_err={err:.3g} rel {rel:.3g} (tol {tol} of max|ref|), vs the "
-                  f"Bottleneck module rel {module_rel:.3g}; kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} module_ms={module_ms:.4f} (cuDNN convs)")
+            module_ms = cuda_ms(lambda: block(x4), iters=iters, warmup=1)
+            bd = bound(2.0 * n * hw * hw * (2 * c * f + 9 * f * f),
+                       2 * nbytes(x2) + sum(nbytes(t) for t in cast), dtype)
+            report[(stage, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                      "library_ms": module_ms, **bd}
+            print(f"phase k5 {str(dtype)[6:]} stage {stage} [{n * hw * hw},{c}] F={f} n={n} "
+                  f"{hw}x{hw} ({variant}): max_abs_err={err:.3g} rel {rel:.3g} (tol {tol} of "
+                  f"max|ref|), vs the Bottleneck module rel {module_rel:.3g}; kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={module_ms:.4f} (the module, cuDNN "
+                  f"convs) {bound_text(bd)}")
+            del x2, x4, block, args, cast
+            torch.cuda.empty_cache()
+    cuda_lib.reset_launch_counts()
     return report
 
 
@@ -508,7 +634,11 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     launches = dict(cuda_lib.launch_counts)
     forwards = 2 * (ITERS + 1)
     identity_blocks = visual32.config.stage_sizes[2] - 1
-    want = {"fused_bottleneck": identity_blocks * forwards, "box_attention": forwards,
+    # half the forwards are bf16 (K5 on the tensor cores), half f32 (CUDA cores)
+    want = {"fused_bottleneck": identity_blocks * forwards,
+            "fused_bottleneck.wgmma": identity_blocks * forwards // 2,
+            "fused_bottleneck.simt": identity_blocks * forwards // 2,
+            "box_attention": forwards,
             "fused_self_attention": cfg.text.num_hidden_layers * forwards,
             "device_normalize": 2 * forwards}
     if launches != want:
@@ -579,8 +709,9 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
         print(f"phase fused backbone {name} over {STAGE3_IMAGES} images at 224^2: fused "
               f"(stage 3 through K5) {fused_ms:.2f} ms/pass, plain {plain_ms:.2f} ms/pass on "
               f"{card}")
-    print(f"phase fused launches over {forwards} forwards: {launches} ({identity_blocks} K5, "
-          f"1 K3, {cfg.text.num_hidden_layers} K1, 2 K2 per forward)")
+    print(f"phase fused launches over {forwards} forwards: {launches} ({identity_blocks} K5 "
+          f"(tensor-core variant in bf16, CUDA-core in f32), 1 K3, "
+          f"{cfg.text.num_hidden_layers} K1, 2 K2 per forward)")
     return launches, times
 
 
@@ -740,7 +871,7 @@ def main() -> int:
     k3 = phase_k3(dev, ba)
     k4, k4_launches = phase_k4(dev, cuda_lib, fr)
     torch.cuda.empty_cache()
-    k5 = phase_k5(dev, layers, resnet, fused_backbone, fr)
+    k5 = phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr)
     torch.cuda.empty_cache()
     launches = phase_slice(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
                            image_prep)
@@ -751,47 +882,38 @@ def main() -> int:
     train_launches = phase_train(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
                                  image_prep, optim, train_state)
 
-    k1_err = max([e for e, _, _ in k1.values()]
-                 + [errs["out"] for errs, *_ in k1_bwd.values()])
-    k1b_err = max(max(errs[n] for n in ("dq", "dk", "dv")) for errs, *_ in k1_bwd.values())
-    k2_err = max(e for e, _, _ in k2.values())
-    _, k1_ms, k1_plain, k1b_ms, k1b_plain = k1_bwd[("-10000", torch.bfloat16, 0.1)]
-    _, k2_ms, k2_plain = k2[("packed_rois", torch.bfloat16)]
-    _, k3_ms, k3_plain = k3[torch.bfloat16]
-    k4_err = max(e for e, _, _ in k4.values())
-    _, k4_ms, k4_plain = next(v for (name, dt), v in k4.items()
-                              if name.startswith("conv1") and dt == torch.bfloat16)
-    _, k5_ms, k5_plain = k5[torch.bfloat16]
-    source = "macsa_tpu_torch/csrc/fused_attention.cu"
-    resnet_source = "macsa_tpu_torch/csrc/fused_resnet.cu"
+    def entry(name, source, replaces, launched, err, timed):
+        """One kernel of the `kernels` line: its launches on the paths, its
+        worst error over its phase, and the times of its bf16 case."""
+        return {"name": name, "route": "cuda", "source": f"macsa_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launched, "max_abs_err": err,
+                "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
+                "bound_by": timed["bound_by"], "library_ms": timed.get("library_ms")}
+
+    bf16 = torch.bfloat16
+    k1_bwd0 = k1_bwd[("-10000", bf16, 0.0)]  # rate 0: the case SDPA's backward is timed at
+    k1_err = max([r["err"] for r in k1.values()] + [r["err"]["out"] for r in k1_bwd.values()])
+    k1b_err = max(max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values())
+    k4_conv1 = next(r for (name, dt), r in k4.items() if name.startswith("conv1") and dt == bf16)
     kernels = [
-        {"name": "fused_self_attention", "route": "cuda", "source": source,
-         "replaces": "macsa_tpu/ops/fused_attention.py:92",
-         "launches": launches["fused_self_attention"]
-         + fused_launches["fused_self_attention"] + train_launches["fused_self_attention"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "fused_self_attention_bwd", "route": "cuda", "source": source,
-         "replaces": "macsa_tpu/ops/fused_attention.py:118",
-         "launches": train_launches["fused_self_attention_bwd"],
-         "max_abs_err": k1b_err, "ms": k1b_ms, "plain_ms": k1b_plain},
-        {"name": "device_normalize", "route": "cuda",
-         "source": "macsa_tpu_torch/csrc/image_prep.cu",
-         "replaces": "macsa_tpu/ops/image_prep.py:36",
-         "launches": launches["device_normalize"] + fused_launches["device_normalize"]
-         + train_launches["device_normalize"],
-         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "box_attention", "route": "cuda",
-         "source": "macsa_tpu_torch/csrc/box_attention.cu",
-         "replaces": "macsa_tpu/ops/box_attention_kernel.py:37",
-         "launches": fused_launches["box_attention"],
-         "max_abs_err": max(e for e, _, _ in k3.values()), "ms": k3_ms, "plain_ms": k3_plain},
-        {"name": "fused_matmul_bn_act", "route": "cuda", "source": resnet_source,
-         "replaces": "tools_dev/fused_resnet_experiment.py:82",
-         "launches": k4_launches, "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
-        {"name": "fused_bottleneck", "route": "cuda", "source": resnet_source,
-         "replaces": "tools_dev/fused_resnet_experiment.py:208",
-         "launches": fused_launches["fused_bottleneck"],
-         "max_abs_err": max(e for e, _, _ in k5.values()), "ms": k5_ms, "plain_ms": k5_plain},
+        entry("fused_self_attention", "fused_attention.cu", "macsa_tpu/ops/fused_attention.py:92",
+              launches["fused_self_attention"] + fused_launches["fused_self_attention"]
+              + train_launches["fused_self_attention"], k1_err, k1[("-10000", bf16)]),
+        entry("fused_self_attention_bwd", "fused_attention.cu",
+              "macsa_tpu/ops/fused_attention.py:118", train_launches["fused_self_attention_bwd"],
+              k1b_err, k1_bwd0),
+        entry("device_normalize", "image_prep.cu", "macsa_tpu/ops/image_prep.py:36",
+              launches["device_normalize"] + fused_launches["device_normalize"]
+              + train_launches["device_normalize"], max(r["err"] for r in k2.values()),
+              k2[("packed_rois", bf16)]),
+        entry("box_attention", "box_attention.cu", "macsa_tpu/ops/box_attention_kernel.py:37",
+              fused_launches["box_attention"], max(r["err"] for r in k3.values()), k3[bf16]),
+        entry("fused_matmul_bn_act", "fused_resnet_wgmma.cu",
+              "tools_dev/fused_resnet_experiment.py:82", k4_launches,
+              max(r["err"] for r in k4.values()), k4_conv1),
+        entry("fused_bottleneck", "fused_resnet_wgmma.cu",
+              "tools_dev/fused_resnet_experiment.py:208", fused_launches["fused_bottleneck"],
+              max(r["err"] for r in k5.values()), k5[(3, bf16)]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

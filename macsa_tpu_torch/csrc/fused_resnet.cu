@@ -1,5 +1,9 @@
 // A 1x1 convolution with its frozen-BatchNorm epilogue (kernel K4) and a
-// whole stride-1 identity ResNet bottleneck (kernel K5) for Hopper (sm_90a).
+// whole stride-1 identity ResNet bottleneck (kernel K5) for Hopper (sm_90a):
+// the CUDA-core variants, which take f32 and bf16 at any shape.  bf16 at
+// the ResNet's widths goes to the tensor-core variants of
+// `fused_resnet_wgmma.cu` instead (`ops/fused_resnet.py` picks by dtype and
+// shape); f32 stays here, because a TF32 product would not be f32.
 //
 // Replaces: tools_dev/fused_resnet_experiment.py,
 //   K4: `_kernel` via `_call` in the custom VJP `fused_matmul_bn_act`:
@@ -21,9 +25,9 @@
 // What bounds them on the H100.  At ResNet-152 stage 3 over 280 images
 // (54,880 rows, C = 1024, F = 256) one bottleneck is ~121 GFLOP against
 // ~225 MB (f32) or ~112 MB (bf16) of x read and output written: far above
-// the card's ratio of operations to bytes, so compute-bound.  These first
-// versions sum on the CUDA cores in f32 (~67 TFLOP/s peak), not on the
-// tensor cores; wgmma tiles are later work.  The unfused path's cost that
+// the card's ratio of operations to bytes, so compute-bound: these kernels
+// sum on the CUDA cores in f32 (67 TFLOP/s peak: 1.83 ms for that block,
+// 0.43 ms for one of its 1x1 convs).  The unfused path's cost that
 // K5 removes is memory traffic: conv outputs of 4F channels written and
 // read back by separate BN, residual and ReLU passes.
 //

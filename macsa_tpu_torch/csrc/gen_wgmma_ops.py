@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Writes `wgmma_ops.cuh`: the inline-PTX wrappers of Hopper's warpgroup
+matrix multiply for bf16 operands and f32 accumulators.
+
+    python3 macsa_tpu_torch/csrc/gen_wgmma_ops.py
+
+A `wgmma.mma_async` names every accumulator register of a thread as an
+operand (N/2 of them for an m64nNk16 tile), so the wrappers are long and
+regular; this script writes them for N in {64, 128}, with A read from
+shared memory through a descriptor (`Op<N>::ss`) or from registers
+(`Op<N>::rs`).  The header is committed; rerun the script to change it.
+"""
+
+from pathlib import Path
+
+WIDTHS = (64, 128)
+
+HEADER = '''\
+// Generated by gen_wgmma_ops.py; do not edit by hand.
+//
+// m64nNk16 bf16 x bf16 -> f32 warpgroup products (sm_90a).  d[N/2] is the
+// thread's share of the 64 x N accumulator: d[4j], d[4j+1] are row
+// 16*warp + lane/4, columns 8j + 2*(lane%4) and the next; d[4j+2], d[4j+3]
+// the same columns of row + 8.  B is always read from shared memory
+// through a descriptor with the transpose bit set (B stored [k][n], n
+// contiguous).  `accumulate` = 0 overwrites d, else adds to it.
+#pragma once
+#include <stdint.h>
+
+namespace wgmma {
+
+template <int N> struct Op;
+'''
+
+
+def operands(n_acc: int, first: int) -> str:
+    return ", ".join(f"%{first + i}" for i in range(n_acc))
+
+
+def acc_constraints(n_acc: int) -> str:
+    rows = []
+    for i in range(0, n_acc, 8):
+        rows.append(", ".join(f'"+f"(d[{i + j}])' for j in range(8)))
+    return ",\n          ".join(rows)
+
+
+def op(n: int) -> str:
+    n_acc = n // 2
+    d = operands(n_acc, 0)
+    return f'''
+template <> struct Op<{n}> {{
+  // A and B from shared memory (A stored [m][k], k contiguous)
+  static __device__ __forceinline__ void ss(float (&d)[{n_acc}], uint64_t desc_a, uint64_t desc_b,
+                                            int accumulate) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{n_acc + 2}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+        "{{{d}}}, "
+        "%{n_acc}, %{n_acc + 1}, p, 1, 1, 0, 1;\\n}}\\n"
+        : {acc_constraints(n_acc)}
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }}
+  // A from registers (the m16k16 fragment of each warp), B from shared memory
+  static __device__ __forceinline__ void rs(float (&d)[{n_acc}], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{n_acc + 5}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
+        "{{{d}}}, "
+        "{{%{n_acc}, %{n_acc + 1}, %{n_acc + 2}, %{n_acc + 3}}}, %{n_acc + 4}, p, 1, 1, 1;\\n}}\\n"
+        : {acc_constraints(n_acc)}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }}
+}};
+'''
+
+
+FOOTER = '''
+__device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\\n" ::: "memory"); }
+__device__ __forceinline__ void commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\\n" ::: "memory");
+}
+template <int PENDING> __device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\\n" ::"n"(PENDING) : "memory");
+}
+
+}  // namespace wgmma
+'''
+
+
+def main() -> None:
+    text = HEADER + "".join(op(n) for n in WIDTHS) + FOOTER
+    Path(__file__).with_name("wgmma_ops.cuh").write_text(text)
+
+
+if __name__ == "__main__":
+    main()

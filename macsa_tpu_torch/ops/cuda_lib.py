@@ -57,6 +57,11 @@ _SIGNATURES = {
     "macsa_matmul_bn_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out, n, h, w, c, f, bf16, stream
     "macsa_fused_bottleneck": [_P] * 11 + [_I] * 6 + [_P],
+    # the bf16 tensor-core variants (csrc/fused_resnet_wgmma.cu)
+    # x, w, mul, add, residual (or NULL), out, m, n, k, relu, stream
+    "macsa_matmul_bn_act_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out, n, h, w, c, f, tile_rows, stream
+    "macsa_fused_bottleneck_wgmma": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 

@@ -9,9 +9,15 @@ nothing).  Weights are [in, out] matrices: w [K, N] for K4; w1 [C, F],
 w2 [9, F, F] (the 3x3 taps in dy*3+dx order) and w3 [F, C] for K5.  Each
 (mul, add) is the f32 frozen-BatchNorm affine of one conv.
 
-On a CUDA tensor the wrappers launch the hand-written kernels
-(`macsa_tpu_torch/csrc/fused_resnet.cu`), K5 as one launch per
-bottleneck with its intermediates kept on chip.  Under autograd K4's
+On a CUDA tensor the wrappers launch the hand-written kernels, K5 as one
+launch per bottleneck with its intermediates kept on chip.  Each kernel
+has two variants, picked by `matmul_variant` / `bottleneck_variant` from
+the dtype and the shape alone: "wgmma"
+(`macsa_tpu_torch/csrc/fused_resnet_wgmma.cu`: bf16 products on the
+tensor cores, operands through an asynchronous ring in shared memory)
+and "simt" (`macsa_tpu_torch/csrc/fused_resnet.cu`: f32 sums on the CUDA
+cores, any shape, f32 or bf16).  `cuda_lib.launch_counts` counts each
+launch under the kernel's name and under "<name>.<variant>".  Under autograd K4's
 gradient is `fused_matmul_bn_act_backward_reference` (the JAX `_bwd`) and
 K5's is PyTorch autograd through `bottleneck_reference` (the JAX `_bneck_bwd`
 takes `jax.vjp` of `_bottleneck_ref`).  On a CPU tensor they run the
@@ -20,6 +26,7 @@ plain versions, and autograd differentiates those.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -114,6 +121,65 @@ def _check_dtype(x2: torch.Tensor) -> None:
         raise ValueError(f"x2 must be [rows, channels], got {tuple(x2.shape)}")
 
 
+WGMMA_F = (64, 128, 256, 512)  # bottleneck widths the tensor-core K5 is built for
+SMEM_PER_BLOCK = 232448        # bytes of shared memory one block can have on sm_90
+_WGMMA_RING = 1024 + 4 * 128 * 64 * 2  # alignment slack + the ring of weight tiles
+_WGMMA_X_RING = 4 * 128 * 64 * 2       # conv1's ring of x tiles, in a2's space
+_WGMMA_OUT_STAGE = 128 * (128 + 8) * 4  # conv3's f32 output staging tile, in a1's space
+
+
+def matmul_variant(dtype: torch.dtype, m: int, n: int, k: int) -> str:
+    """Which K4 kernel takes x2 [m, k] @ w [k, n] on a CUDA tensor: "wgmma"
+    for bf16 with k and n multiples of 64 (any m), else "simt"."""
+    if dtype == torch.bfloat16 and m >= 1 and n >= 64 and k >= 64 and n % 64 == 0 \
+            and k % 64 == 0:
+        return "wgmma"
+    return "simt"
+
+
+def wgmma_bottleneck_smem(tile_rows: int, w: int, f: int) -> int:
+    """Bytes of shared memory of one block of the tensor-core K5 with
+    `tile_rows` output image rows: the weight ring, a2 [tile_rows * (w + 1),
+    F] (no smaller than conv1's ring of x tiles, which shares its space)
+    and a1 [(tile_rows + 2) * (w + 1) + 2, F] (no smaller than conv3's
+    output staging tile, which shares its space), rows padded by 16 bytes."""
+    row = 2 * f + 16
+    a2 = max(tile_rows * (w + 1) * row, _WGMMA_X_RING)
+    a1 = max(((tile_rows + 2) * (w + 1) + 2) * row, _WGMMA_OUT_STAGE)
+    return _WGMMA_RING + a2 + a1
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_tile_rows(h: int, w: int, f: int, limit: int = SMEM_PER_BLOCK) -> int:
+    """Output image rows per block of the tensor-core K5: the most that fit
+    in `limit` bytes of shared memory, evened over the image's h rows
+    (h = 14: 9 fit, two tiles, so 7 each).  0 if not even one row fits."""
+    most = 0
+    while most < h and wgmma_bottleneck_smem(most + 1, w, f) <= limit:
+        most += 1
+    if most == 0:
+        return 0
+    tiles = -(-h // most)
+    return -(-h // tiles)
+
+
+def bottleneck_variant(dtype: torch.dtype, h: int, w: int, c: int, f: int) -> str:
+    """Which K5 kernel takes an [n*h*w, c] block of width f on a CUDA
+    tensor: "wgmma" for bf16 with f one of 64, 128, 256, 512 (the ResNet
+    widths), c a multiple of 128 and an image row narrow enough for one
+    output row's a1 and a2 to fit in shared memory; else "simt"."""
+    if dtype == torch.bfloat16 and f in WGMMA_F and c >= 128 and c % 128 == 0 \
+            and wgmma_tile_rows(h, w, f) > 0:
+        return "wgmma"
+    return "simt"
+
+
+def _check_aligned(named) -> None:
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the tensor-core kernel")
+
+
 def _launch_k4(x2, w, mul, add, residual, relu) -> torch.Tensor:
     m, k = x2.shape
     n = w.shape[-1]
@@ -128,12 +194,21 @@ def _launch_k4(x2, w, mul, add, residual, relu) -> torch.Tensor:
     out = torch.empty(m, n, dtype=x2.dtype, device=x2.device)
     if out.numel() == 0:
         return out
-    status = cuda_lib.library().macsa_matmul_bn_act(
-        x2.data_ptr(), w.data_ptr(), mul.data_ptr(), add.data_ptr(),
-        None if residual is None else residual.data_ptr(), out.data_ptr(), m, n, k,
-        int(relu), int(x2.dtype == torch.bfloat16), cuda_lib.stream_handle(x2.device))
-    cuda_lib.check(status, "macsa_matmul_bn_act")
+    variant = matmul_variant(x2.dtype, m, n, k)
+    pointers = (x2.data_ptr(), w.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                None if residual is None else residual.data_ptr(), out.data_ptr())
+    stream = cuda_lib.stream_handle(x2.device)
+    if variant == "wgmma":
+        _check_aligned([("x2", x2), ("w", w)]
+                       + ([] if residual is None else [("residual", residual)]))
+        status = cuda_lib.library().macsa_matmul_bn_act_wgmma(*pointers, m, n, k, int(relu),
+                                                              stream)
+    else:
+        status = cuda_lib.library().macsa_matmul_bn_act(
+            *pointers, m, n, k, int(relu), int(x2.dtype == torch.bfloat16), stream)
+    cuda_lib.check(status, f"macsa_matmul_bn_act ({variant})")
     cuda_lib.launch_counts["fused_matmul_bn_act"] += 1
+    cuda_lib.launch_counts[f"fused_matmul_bn_act.{variant}"] += 1
     return out
 
 
@@ -162,7 +237,10 @@ def fused_matmul_bn_act(x2: torch.Tensor, w: torch.Tensor, mul: torch.Tensor,
     """relu?((x2 @ w) * mul + add [+ residual]): a 1x1 conv over NHWC rows
     with its frozen-BN epilogue.  x2 [M, K]; w [K, N] in x2's dtype;
     mul/add [N] f32; residual [M, N] in x2's dtype or None.  Returns
-    [M, N] in x2's dtype, with an f32 product and epilogue."""
+    [M, N] in x2's dtype, with an f32 product and epilogue.  On a CUDA
+    tensor the kernel is the one `matmul_variant(dtype, M, N, K)` names:
+    bf16 with K and N multiples of 64 runs on the tensor cores, anything
+    else on the CUDA cores; nothing is tried and retried."""
     if x2.device.type == "cpu":
         return fused_matmul_bn_act_reference(x2, w, mul, add, residual, relu)
     if x2.device.type != "cuda":
@@ -186,11 +264,19 @@ def _launch_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w) -> t
         ("add2", add2, f32, (f,)), ("w3", w3, None, (f, c)), ("mul3", mul3, f32, (c,)),
         ("add3", add3, f32, (c,))])
     out = torch.empty_like(x2)
-    status = cuda_lib.library().macsa_fused_bottleneck(
-        *(t.data_ptr() for t in (x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out)),
-        n, h, w, c, f, int(x2.dtype == torch.bfloat16), cuda_lib.stream_handle(x2.device))
-    cuda_lib.check(status, "macsa_fused_bottleneck")
+    variant = bottleneck_variant(x2.dtype, h, w, c, f)
+    pointers = [t.data_ptr() for t in (x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out)]
+    stream = cuda_lib.stream_handle(x2.device)
+    if variant == "wgmma":
+        _check_aligned([("x2", x2), ("w1", w1), ("w2", w2), ("w3", w3)])
+        status = cuda_lib.library().macsa_fused_bottleneck_wgmma(
+            *pointers, n, h, w, c, f, wgmma_tile_rows(h, w, f), stream)
+    else:
+        status = cuda_lib.library().macsa_fused_bottleneck(
+            *pointers, n, h, w, c, f, int(x2.dtype == torch.bfloat16), stream)
+    cuda_lib.check(status, f"macsa_fused_bottleneck ({variant})")
     cuda_lib.launch_counts["fused_bottleneck"] += 1
+    cuda_lib.launch_counts[f"fused_bottleneck.{variant}"] += 1
     return out
 
 
@@ -225,7 +311,10 @@ def fused_bottleneck(x2: torch.Tensor, w1: torch.Tensor, mul1: torch.Tensor,
 
     x2 [n*h*w, C]; w1 [C, F], w2 [9, F, F], w3 [F, C], cast to x2's dtype
     here (differentiably, as `_bneck_fwd` casts them); mul*/add* the f32 BN
-    affines.  Returns [n*h*w, C] in x2's dtype."""
+    affines.  Returns [n*h*w, C] in x2's dtype.  On a CUDA tensor the
+    kernel is the one `bottleneck_variant(dtype, h, w, C, F)` names: bf16
+    with F in 64/128/256/512 and C a multiple of 128 (every ResNet stage)
+    runs on the tensor cores, anything else on the CUDA cores."""
     dt = x2.dtype
     weights = (w1.to(dt).contiguous(), w2.to(dt).contiguous(), w3.to(dt).contiguous())
     affines = tuple(t.float().contiguous() for t in (mul1, add1, mul2, add2, mul3, add3))

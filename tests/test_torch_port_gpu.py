@@ -256,18 +256,23 @@ def _bn_affine(g, channels, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 24, 40), (300, 64, 256), (1037, 256, 64),
-                                   (777, 100, 130)])
+                                   (777, 100, 130), (54880, 1024, 256), (130, 64, 512)])
 @pytest.mark.parametrize("has_res,relu", [(True, True), (False, True), (True, False)])
 def test_matmul_bn_act_kernel_matches_plain(cuda, dtype, m, k, n, has_res, relu):
+    """Ragged M throughout; bf16 with K and N multiples of 64 must run the
+    tensor-core variant, everything else the CUDA-core one."""
     g = torch.Generator(cuda).manual_seed(4)
     x2 = torch.randn(m, k, device=cuda, generator=g).to(dtype)
     w = (torch.randn(k, n, device=cuda, generator=g) / k ** 0.5).to(dtype)
     mul, add = _bn_affine(g, n, cuda)
     res = torch.randn(m, n, device=cuda, generator=g).to(dtype) if has_res else None
-    before = cuda_lib.launch_counts["fused_matmul_bn_act"]
+    variant = "wgmma" if dtype == torch.bfloat16 and k % 64 == 0 and n % 64 == 0 else "simt"
+    assert fr.matmul_variant(dtype, m, n, k) == variant
+    cuda_lib.reset_launch_counts()
     out = fr.fused_matmul_bn_act(x2, w, mul, add, res, relu)
     torch.cuda.synchronize()
-    assert cuda_lib.launch_counts["fused_matmul_bn_act"] == before + 1
+    assert dict(cuda_lib.launch_counts) == {"fused_matmul_bn_act": 1,
+                                            f"fused_matmul_bn_act.{variant}": 1}
     assert out.dtype == dtype and out.shape == (m, n)
     assert _rel_err(out, fr.fused_matmul_bn_act_reference(x2, w, mul, add, res, relu)) \
         <= RESNET_TOL[dtype]
@@ -282,19 +287,26 @@ def _bottleneck_args(g, n, h, w, c, f, dtype, device):
             *_bn_affine(g, c, device))
 
 
-# (h, w, C, F): the identity blocks of ResNet-152's four stages, and tiny ones
+# (n, h, w, C, F): the identity blocks of ResNet-152's four stages (in bf16
+# on the tensor cores), tiny ones, one image, h != w at a width the
+# tensor-core kernel is built for (64) and at one it is not (16), and an
+# image whose rows leave a ragged last tile (20 rows in tiles of 7)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,w,c,f", [(56, 56, 256, 64), (28, 28, 512, 128),
-                                     (14, 14, 1024, 256), (7, 7, 2048, 512),
-                                     (8, 8, 32, 8), (6, 10, 32, 8)])
-def test_bottleneck_kernel_matches_plain(cuda, dtype, h, w, c, f):
+@pytest.mark.parametrize("n,h,w,c,f", [(3, 56, 56, 256, 64), (3, 28, 28, 512, 128),
+                                       (3, 14, 14, 1024, 256), (3, 7, 7, 2048, 512),
+                                       (3, 8, 8, 32, 8), (3, 6, 10, 32, 8),
+                                       (1, 6, 10, 64, 16), (1, 6, 10, 256, 64),
+                                       (2, 20, 14, 1024, 256)])
+def test_bottleneck_kernel_matches_plain(cuda, dtype, n, h, w, c, f):
     g = torch.Generator(cuda).manual_seed(5)
-    n = 3
     args = _bottleneck_args(g, n, h, w, c, f, dtype, cuda)
-    before = cuda_lib.launch_counts["fused_bottleneck"]
+    variant = "wgmma" if dtype == torch.bfloat16 and f >= 64 else "simt"
+    assert fr.bottleneck_variant(dtype, h, w, c, f) == variant
+    cuda_lib.reset_launch_counts()
     out = fr.fused_bottleneck(*args, n, h, w)
     torch.cuda.synchronize()
-    assert cuda_lib.launch_counts["fused_bottleneck"] == before + 1
+    assert dict(cuda_lib.launch_counts) == {"fused_bottleneck": 1,
+                                            f"fused_bottleneck.{variant}": 1}
     assert out.dtype == dtype and out.shape == args[0].shape
     cast = [t.to(dtype) if i in (1, 4, 7) else t for i, t in enumerate(args)]
     assert _rel_err(out, fr.bottleneck_reference(*cast, n, h, w)) <= K5_TOL[dtype]
@@ -324,6 +336,29 @@ def test_fused_resnet_gradients_match_plain_autograd(cuda):
             assert _rel_err(a, b) <= 1e-4, (name, i)
 
 
+def test_fused_backbone_bf16_runs_the_tensor_core_kernel(cuda):
+    """A backbone at ResNet widths (64 filters), bf16: every identity block
+    of every stage goes through the tensor-core K5, and the features stay
+    no further from the f32 heads than twice the plain bf16 path's."""
+    kw = dict(stage_sizes=(2, 2, 2, 2), num_filters=64, grid_size=2)
+    visual = init_weights(VisualFeatures(config.ResNetConfig(dtype="float32", **kw)),
+                          torch.Generator().manual_seed(9)).to(cuda)
+    visual16 = VisualFeatures(config.ResNetConfig(dtype="bfloat16", **kw), device=cuda)
+    visual16.load_state_dict(visual.state_dict())
+    g = torch.Generator(cuda).manual_seed(10)
+    x = torch.randn(1, 2, 64, 64, 3, device=cuda, generator=g)
+    rois = torch.randn(1, 2, 2, 64, 64, 3, device=cuda, generator=g)
+    with torch.no_grad():
+        cuda_lib.reset_launch_counts()
+        fused = fused_backbone.extract_features(visual16, x, rois, stages=(1, 2, 3, 4))
+        torch.cuda.synchronize()
+        assert dict(cuda_lib.launch_counts) == {"fused_bottleneck": 4, "fused_bottleneck.wgmma": 4}
+        plain = (visual16.grid_features(x), visual16.pooled_features(rois))
+        want = (visual.grid_features(x), visual.pooled_features(rois))
+    for i in range(2):
+        assert _rel_err(fused[i], want[i]) <= 2 * _rel_err(plain[i], want[i])
+
+
 def test_fused_backbone_on_gpu_matches_plain(cuda):
     """`extract_features` with every stage fused: one K5 launch per identity
     block.  f32: against the module's own grid/pooled heads on the card,
@@ -345,7 +380,13 @@ def test_fused_backbone_on_gpu_matches_plain(cuda):
             cuda_lib.reset_launch_counts()
             feats[name] = fused_backbone.extract_features(module, x, rois, stages=(1, 2, 3, 4))
             torch.cuda.synchronize()
-            assert dict(cuda_lib.launch_counts) == {"fused_bottleneck": 1 + 1 + 2 + 1}
+            # 8 filters: only stage 4 (F = 64, C = 256) has a width the
+            # tensor-core kernel is built for, and it takes bf16 alone
+            want = {"fused_bottleneck": 5, "fused_bottleneck.simt": 5}
+            if name == "bf16":
+                want = {"fused_bottleneck": 5, "fused_bottleneck.simt": 4,
+                        "fused_bottleneck.wgmma": 1}
+            assert dict(cuda_lib.launch_counts) == want
             feats["plain_" + name] = (module.grid_features(x), module.pooled_features(rois))
     for i in range(2):  # grid, roi
         want = feats["plain_f32"][i]
