@@ -6,7 +6,8 @@
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit (`nvcc`).  It builds the port's kernels from `macsa_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the shapes of the
-paths below (K2; K1's forward and backward with dropout on and off; K3,
+paths below (K2; K1's forward and backward with dropout on and off, bf16
+on its tensor-core variant and f32 on its CUDA-core variant; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
 whole identity bottleneck, at all four stages; in bf16 both must run their
@@ -26,6 +27,9 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
   of `finetune.py`) for a few steps on one batch in f32 and bf16, after
   holding one step's loss and gradients through the kernels (K3's
   included) against the plain path's at dropout 0,
+* and, after the last timed step (so that no timing has the profiler in
+  its process), breaks two bf16 train steps' device time down by kernel
+  and reads the device time of K1's and SDPA's backward,
 and checks that each path went through its kernels.  Each phase prints
 its lines; any failure raises and the exit code is not 0.  The
 second-to-last line lists the kernels as JSON; the last line is the run's
@@ -34,6 +38,7 @@ JSON verdict.  Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -46,6 +51,7 @@ import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 5, 10
+PROFILE_STEPS, PROFILE_ROWS = 2, 24  # the bf16 train step's device-time breakdown
 STAGE3_IMAGES = BATCH * (7 + 28)  # one serving batch: 8 x (7 images + 28 ROI crops)
 
 
@@ -87,6 +93,42 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(fn, iters: int, warmup: int) -> list:
+    """(device microseconds, calls, name) of every kernel that `iters` calls
+    of `fn` run on the card, from `torch.profiler`, largest first."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0),
+             e.count, e.key) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            # a span such as the optimizer's covers kernels that are listed themselves
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
+    if not sum(r[0] for r in rows) > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return sorted(rows, reverse=True)
+
+
+def device_ms(fn, iters: int = 100, warmup: int = 5) -> float:
+    """Mean time of the device kernels `fn` launches: what a call costs the
+    card when the host is not the limit."""
+    return sum(r[0] for r in device_profile(fn, iters, warmup)) / 1e3 / iters
+
+
+K1_VARIANT = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+
+
+def expect_counts(cuda_lib, want: dict, what: str) -> None:
+    if dict(cuda_lib.launch_counts) != want:
+        raise AssertionError(f"{what}: launches {dict(cuda_lib.launch_counts)}, not {want}")
 
 
 def f32_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -169,9 +211,10 @@ def attention_bound(b, l, h, d, dtype, backward: bool) -> dict:
     return bound(4.0 * b * h * l * l * d, 4 * tensor + b * l * 4, dtype)
 
 
-def phase_k1(dev, fa):
-    """K1 against its plain version at the text encoder's serving shape,
-    beside `F.scaled_dot_product_attention` with the same additive mask."""
+def phase_k1(dev, cuda_lib, fa):
+    """K1 against its plain version at the text encoder's serving shape
+    (bf16 must run the tensor-core variant, f32 the CUDA-core one), beside
+    `F.scaled_dot_product_attention` with the same additive mask."""
     g = torch.Generator(dev).manual_seed(1)
     b, l, h, d = BATCH * NUM_ASPECTS, 170, 12, 64
     lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
@@ -186,13 +229,17 @@ def phase_k1(dev, fa):
         mask = torch.zeros(b, l, device=dev).masked_fill(pad, neg)
         for dtype, atol in tolerance.items():
             qc, kc, vc = q.to(dtype), k.to(dtype), v.to(dtype)
+            variant = K1_VARIANT[dtype]
+            cuda_lib.reset_launch_counts()
             got = fa.fused_self_attention(qc, kc, vc, mask, h)
+            expect_counts(cuda_lib, {"fused_self_attention": 1,
+                                     f"fused_self_attention.{variant}": 1}, f"K1 {dtype}")
             want = fa.attention_reference(qc, kc, vc, mask, h)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             if not err <= atol:
                 raise AssertionError(f"K1 {dtype} mask {neg_name}: max abs err {err} > {atol}")
-            ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h))
+            ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h), iters=100)
             plain_ms = cuda_ms(lambda: fa.attention_reference(qc, kc, vc, mask, h))
             q4, k4, v4, m4 = sdpa_inputs(qc, kc, vc, mask, h)
             lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
@@ -201,20 +248,26 @@ def phase_k1(dev, fa):
             if not lib_err <= 5 * atol:
                 raise AssertionError(f"SDPA is not the same function: {lib_err}")
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
-                                                                        attn_mask=m4))
+                                                                        attn_mask=m4), iters=100)
             bd = attention_bound(b, l, h, d, dtype, backward=False)
             report[(neg_name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                          "library_ms": library_ms, **bd}
-            print(f"phase k1 {str(dtype)[6:]} mask {neg_name} [{b},{l},{h * d}] h={h}: "
+            print(f"phase k1 {str(dtype)[6:]} ({variant}) mask {neg_name} [{b},{l},{h * d}] h={h}: "
                   f"max_abs_err={err:.3g} (atol {atol}) kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, additive mask) "
                   f"{bound_text(bd)}")
     return report
 
 
-def phase_k1_bwd(dev, fa):
+def phase_k1_bwd(dev, cuda_lib, fa):
     """K1 forward with dropout and K1's backward against their plain
-    versions (same seed, so the same mask) at the train step's shape."""
+    versions (same seed, so the same mask) at the train step's shape; bf16
+    must run the tensor-core variants, f32 the CUDA-core ones.  The
+    backward and its yardstick, SDPA's backward, are each timed twice over
+    100 back-to-back calls by CUDA events (two readings must agree for
+    either to be a target).  SDPA's backward can only be called through
+    autograd, which costs the host more than the card, so
+    `phase_k1_bwd_device` reads the device time of both once more."""
     g = torch.Generator(dev).manual_seed(5)
     b, l, h, d, seed = BATCH * NUM_ASPECTS, 170, 12, 64, 20240917
     lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
@@ -239,8 +292,15 @@ def phase_k1_bwd(dev, fa):
             for rate in (0.0, 0.1):
                 qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, gout))
                 leaves = [x.clone().requires_grad_(True) for x in (qc, kc, vc)]
+                variant = K1_VARIANT[dtype]
+                cuda_lib.reset_launch_counts()
                 out = fa.fused_self_attention(*leaves, mask, h, rate, seed)
                 grads = torch.autograd.grad(out, leaves, gc, retain_graph=True)
+                expect_counts(cuda_lib, {"fused_self_attention": 1,
+                                         f"fused_self_attention.{variant}": 1,
+                                         "fused_self_attention_bwd": 1,
+                                         f"fused_self_attention_bwd.{variant}": 1},
+                              f"K1 forward and backward {dtype}")
                 want_out = fa.attention_reference(qc, kc, vc, mask, h, rate, seed)
                 wants = fa.attention_backward_reference(qc, kc, vc, mask, gc, h, rate, seed)
                 torch.cuda.synchronize()
@@ -253,34 +313,71 @@ def phase_k1_bwd(dev, fa):
                         raise AssertionError(f"K1 {name} {dtype} rate {rate} mask {neg_name}: "
                                              f"error {rel_err[name]} of max|ref| > {tol}")
                 fwd_ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h, rate,
-                                                                 seed))
+                                                                 seed), iters=100)
                 fwd_plain = cuda_ms(lambda: fa.attention_reference(qc, kc, vc, mask, h, rate,
                                                                    seed))
-                bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, gc,
-                                                             retain_graph=True))
+                # the backward as autograd calls it: the wrapper on the saved tensors
+                lse = fa._launch_fwd(qc, kc, vc, mask, h, rate, seed, with_lse=True)[1]
+                backward = functools.partial(fa._launch_bwd, qc, kc, vc, mask, lse, gc, h, rate,
+                                             seed)
+                readings = [cuda_ms(backward, iters=100, warmup=10) for _ in range(2)]
+                bwd_ms = min(readings)
                 bwd_plain = cuda_ms(lambda: fa.attention_backward_reference(
                     qc, kc, vc, mask, gc, h, rate, seed))
-                library_ms = None
+                library_ms, timing, calls = None, "", None
                 if rate == 0.0:  # SDPA's own dropout draws another mask
                     q4, k4, v4, m4 = sdpa_inputs(*leaves, mask, h)
                     lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
                     g4 = sdpa_inputs(gc, gc, gc, mask, h)[0]
-                    library_ms = cuda_ms(lambda: torch.autograd.grad(lib, leaves, g4,
-                                                                     retain_graph=True))
-                    del lib
+                    lib_backward = functools.partial(torch.autograd.grad, lib, leaves, g4,
+                                                     retain_graph=True)
+                    lib_readings = [cuda_ms(lib_backward, iters=100, warmup=10)
+                                    for _ in range(2)]
+                    through_autograd = cuda_ms(lambda: torch.autograd.grad(
+                        out, leaves, gc, retain_graph=True), iters=100, warmup=10)
+                    library_ms = min(lib_readings)
+                    steady = all(max(pair) <= 1.1 * min(pair)
+                                 for pair in (readings, lib_readings))
+                    timing = (f"; 100 calls twice (within 10%: {'yes' if steady else 'NO'}): "
+                              f"kernel {readings[0]:.4f} {readings[1]:.4f}, "
+                              f"SDPA backward through autograd {lib_readings[0]:.4f} "
+                              f"{lib_readings[1]:.4f}, K1 backward through autograd "
+                              f"{through_autograd:.4f}")
+                    calls = (backward, lib_backward)
                 bd = attention_bound(b, l, h, d, dtype, backward=True)
                 report[(neg_name, dtype, rate)] = {
                     "err": abs_err, "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain, "ms": bwd_ms,
-                    "plain_ms": bwd_plain, "library_ms": library_ms, **bd}
-                print(f"phase k1_bwd {str(dtype)[6:]} rate {rate} mask {neg_name} "
+                    "plain_ms": bwd_plain, "library_ms": library_ms, "calls": calls, **bd}
+                print(f"phase k1_bwd {str(dtype)[6:]} ({variant}) rate {rate} mask {neg_name} "
                       f"[{b},{l},{h * d}] h={h}: rel_err "
                       + " ".join(f"{n}={e:.3g}" for n, e in rel_err.items())
                       + f" (tol {tol} of max|ref|); fwd kernel_ms={fwd_ms:.4f} "
                       f"plain_ms={fwd_plain:.4f}; bwd kernel_ms={bwd_ms:.4f} "
                       f"plain_ms={bwd_plain:.4f} library_ms="
                       + ("none" if library_ms is None else f"{library_ms:.4f} (SDPA backward)")
-                      + f" {bound_text(bd)}")
+                      + f" {bound_text(bd)}" + timing)
     return report
+
+
+def phase_k1_bwd_device(k1_bwd) -> None:
+    """The device time of K1's backward and of SDPA's backward (the kernels
+    alone, from `torch.profiler`), each read twice over 100 calls, at rate
+    0.  Where the host is the limit of a call through autograd this is the
+    smaller figure, and SDPA's becomes the yardstick (`library_ms`).  Run
+    after every timed path, so that no wall-clock timing has the profiler
+    in its process."""
+    for (neg_name, dtype, rate), entry in k1_bwd.items():
+        if entry["calls"] is None or neg_name != "-10000":
+            continue
+        backward, lib_backward = entry.pop("calls")
+        ours = [device_ms(backward) for _ in range(2)]
+        lib = [device_ms(lib_backward) for _ in range(2)]
+        entry["library_ms"] = min(entry["library_ms"], *lib)
+        steady = all(max(pair) <= 1.1 * min(pair) for pair in (ours, lib))
+        print(f"phase k1_bwd {str(dtype)[6:]} rate {rate} device time of the kernels, 100 calls "
+              f"twice (within 10%: {'yes' if steady else 'NO'}): K1 backward {ours[0]:.4f} "
+              f"{ours[1]:.4f}, SDPA backward {lib[0]:.4f} {lib[1]:.4f}; library_ms="
+              f"{entry['library_ms']:.4f}, kernel_ms={entry['ms']:.4f} (CUDA events)")
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -543,8 +640,10 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     preds16, logits16, ms16 = drive(steps.make_finetune_eval_step(model16, visual16))
     launches = dict(cuda_lib.launch_counts)
     forwards = 2 * (ITERS + 1)
-    want = {"fused_self_attention": cfg.text.num_hidden_layers * forwards,
-            "device_normalize": 2 * forwards}
+    # half the forwards are bf16 (K1 on the tensor cores), half f32 (CUDA cores)
+    k1 = cfg.text.num_hidden_layers * forwards
+    want = {"fused_self_attention": k1, "fused_self_attention.wgmma": k1 // 2,
+            "fused_self_attention.simt": k1 // 2, "device_normalize": 2 * forwards}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     for name, logits in (("f32", logits32), ("bf16", logits16)):
@@ -574,7 +673,8 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     print(f"phase slice bf16: logits finite; max |bf16 - f32| = {bf16_gap:.3g}, "
           f"pred agreement {agree:.3f}; {ms16:.2f} ms/forward, "
           f"{pairs * 1e3 / ms16:.1f} pairs/s on {card}")
-    print(f"phase slice launches over {forwards} forwards: {launches}")
+    print(f"phase slice launches over {forwards} forwards: {launches} (12 K1 per forward: "
+          f"tensor-core variant in bf16, CUDA-core in f32)")
     return launches
 
 
@@ -640,6 +740,8 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             "fused_bottleneck.simt": identity_blocks * forwards // 2,
             "box_attention": forwards,
             "fused_self_attention": cfg.text.num_hidden_layers * forwards,
+            "fused_self_attention.wgmma": cfg.text.num_hidden_layers * forwards // 2,
+            "fused_self_attention.simt": cfg.text.num_hidden_layers * forwards // 2,
             "device_normalize": 2 * forwards}
     if launches != want:
         raise AssertionError(f"fused launch counts {launches} != {want}")
@@ -710,8 +812,8 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
               f"(stage 3 through K5) {fused_ms:.2f} ms/pass, plain {plain_ms:.2f} ms/pass on "
               f"{card}")
     print(f"phase fused launches over {forwards} forwards: {launches} ({identity_blocks} K5 "
-          f"(tensor-core variant in bf16, CUDA-core in f32), 1 K3, "
-          f"{cfg.text.num_hidden_layers} K1, 2 K2 per forward)")
+          f"and {cfg.text.num_hidden_layers} K1 (tensor-core variants in bf16, CUDA-core in "
+          f"f32), 1 K3, 2 K2 per forward)")
     return launches, times
 
 
@@ -806,32 +908,48 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
         step = trainer(dtype)
         losses = [step(batch, seed=0)["loss"]]  # untimed: first launch of everything
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, cpu0 = time.perf_counter(), time.process_time()
         for _ in range(TRAIN_STEPS):
             losses.append(step(batch, seed=0)["loss"])
+        # when the host has issued the last step: equal to the wall time
+        # where the host, not the card, is the limit
+        issue_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        cpu_ms = (time.process_time() - cpu0) * 1e3 / TRAIN_STEPS
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
         losses = [x.item() for x in losses]
         if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
             raise AssertionError(f"train {dtype}: losses {losses} not finite and falling")
-        results[dtype] = (ms, losses)
-        del step
-        torch.cuda.empty_cache()
+        results[dtype] = (ms, losses, issue_ms, cpu_ms)
+        if dtype != "bfloat16":  # the bf16 step is profiled below
+            del step
+            torch.cuda.empty_cache()
     launches = dict(cuda_lib.launch_counts)
     n_steps = 2 * (TRAIN_STEPS + 1)
     # no K3: with dropout active the box head takes its plain path, as in JAX
-    want = {"fused_self_attention": cfg.text.num_hidden_layers * n_steps,
-            "fused_self_attention_bwd": cfg.text.num_hidden_layers * n_steps,
-            "device_normalize": 2 * n_steps}
+    k1 = cfg.text.num_hidden_layers * n_steps
+    want = {"device_normalize": 2 * n_steps}
+    for name in ("fused_self_attention", "fused_self_attention_bwd"):
+        want.update({name: k1, f"{name}.wgmma": k1 // 2, f"{name}.simt": k1 // 2})
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
-    for dtype, (ms, losses) in results.items():
+    for dtype, (ms, losses, issue_ms, cpu_ms) in results.items():
         print(f"phase train {dtype}: {ms:.2f} ms/step, {pairs * 1e3 / ms:.1f} pairs/s over "
-              f"{TRAIN_STEPS} steps after one untimed, on {card}; losses "
+              f"{TRAIN_STEPS} steps after one untimed (the host issued them in {issue_ms:.2f} "
+              f"ms/step, {cpu_ms:.2f} ms/step of process CPU time), on {card}; losses "
               + " ".join(f"{x:.4f}" for x in losses))
     print(f"phase train launches over {n_steps} steps: {launches} (12 K1 forward, "
-          f"12 K1 backward, 2 K2, 0 K3 per step: dropout 0.1 takes the box head's plain "
-          f"path)")
+          f"12 K1 backward (tensor-core variants in bf16, CUDA-core in f32), 2 K2, 0 K3 per "
+          f"step: dropout 0.1 takes the box head's plain path)")
+    # where the bf16 step's device time goes (after the counts were read)
+    rows = device_profile(lambda: step(batch, seed=0), iters=PROFILE_STEPS, warmup=0)
+    total = sum(r[0] for r in rows)
+    print(f"phase train bfloat16 profile: {total / 1e3 / PROFILE_STEPS:.2f} ms/step of device "
+          f"time in {sum(r[1] for r in rows) // PROFILE_STEPS} kernels a step (torch.profiler, "
+          f"{PROFILE_STEPS} steps); ms/step x calls/step, largest first:")
+    for rank, (us, calls, name) in enumerate(rows):
+        if rank < PROFILE_ROWS or "attention_" in name:  # K1's kernels wherever they rank
+            print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  {name[:100]}")
     return launches
 
 
@@ -866,8 +984,8 @@ def main() -> int:
     print(f"phase build: {time.perf_counter() - t0:.1f} s ({lib._name})")
 
     k2 = phase_k2(dev, image_prep)
-    k1 = phase_k1(dev, fa)
-    k1_bwd = phase_k1_bwd(dev, fa)
+    k1 = phase_k1(dev, cuda_lib, fa)
+    k1_bwd = phase_k1_bwd(dev, cuda_lib, fa)
     k3 = phase_k3(dev, ba)
     k4, k4_launches = phase_k4(dev, cuda_lib, fr)
     torch.cuda.empty_cache()
@@ -881,6 +999,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
                                  image_prep, optim, train_state)
+    phase_k1_bwd_device(k1_bwd)
 
     def entry(name, source, replaces, launched, err, timed):
         """One kernel of the `kernels` line: its launches on the paths, its
@@ -896,10 +1015,11 @@ def main() -> int:
     k1b_err = max(max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values())
     k4_conv1 = next(r for (name, dt), r in k4.items() if name.startswith("conv1") and dt == bf16)
     kernels = [
-        entry("fused_self_attention", "fused_attention.cu", "macsa_tpu/ops/fused_attention.py:92",
+        entry("fused_self_attention", "fused_attention_wgmma.cu",
+              "macsa_tpu/ops/fused_attention.py:92",
               launches["fused_self_attention"] + fused_launches["fused_self_attention"]
               + train_launches["fused_self_attention"], k1_err, k1[("-10000", bf16)]),
-        entry("fused_self_attention_bwd", "fused_attention.cu",
+        entry("fused_self_attention_bwd", "fused_attention_wgmma.cu",
               "macsa_tpu/ops/fused_attention.py:118", train_launches["fused_self_attention_bwd"],
               k1b_err, k1_bwd0),
         entry("device_normalize", "image_prep.cu", "macsa_tpu/ops/image_prep.py:36",

@@ -1,0 +1,156 @@
+"""Where the tensor-core K1's time goes: copies of its source with one piece
+taken out each, built and timed beside the whole kernel.
+
+    python macsa_tpu_torch/csrc/ablate_attention.py
+
+The card's machine has no kernel profiler, so a piece's cost is read as the
+time the kernel loses without it: each variant below is
+`fused_attention_wgmma.cu` with a few lines replaced (the replacement must
+find its text, so an edit of the source that moves a piece fails here, not
+silently), compiled by `nvcc` into its own library and called through
+`ctypes` on the train step's shape, `[48, 170, 768]` bf16 with 12 heads,
+100 back-to-back launches between CUDA events, all in one process.  The
+variants compute wrong results; only their times mean something.  Stores
+are taken out behind a condition the compiler cannot decide (`L < 0`), so
+the work that feeds them stays.  Needs an H100 and `nvcc`.
+"""
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+from macsa_tpu_torch.ops import cuda_lib  # noqa: E402
+
+SOURCE = cuda_lib.CSRC / "fused_attention_wgmma.cu"
+FWD, BWD = "macsa_fused_attention_fwd_wgmma", "macsa_fused_attention_bwd_wgmma"
+
+# name -> [(old, new), ...]; every `old` must occur in the source
+VARIANTS = {
+    "whole": [],
+    "fwd: no exponentials": [
+        ("p[e] = __expf(s[4 * j + e] - (e < 2 ? mx_lo : mx_hi));",
+         "p[e] = s[4 * j + e] - (e < 2 ? mx_lo : mx_hi);")],
+    "fwd: no K and V loads": [
+        ("    load_rows(k_addr, k + base, hd, k0, NK, L, kWG);\n", ""),
+        ("    load_rows(v_addr, v + base, hd, k0, NK, L, kWG);\n", "")],
+    "fwd: no output stores": [
+        ("  store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}",
+         "  if (L < 0) store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}")],
+    "fwd: no loads, no stores": [
+        ("  load_rows(q_addr, q + base, hd, q0, kTile, L, kWG);\n", ""),
+        ("    load_rows(k_addr, k + base, hd, k0, NK, L, kWG);\n", ""),
+        ("    load_rows(v_addr, v + base, hd, k0, NK, L, kWG);\n", ""),
+        ("  store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}",
+         "  if (L < 0) store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}")],
+    "fwd: two blocks an SM": [("__launch_bounds__(kWG, 3)", "__launch_bounds__(kWG, 2)")],
+    "bwd: no exponentials": [
+        ("e.p = __expf(fmaf(s, scale, mk) - lse_i);", "e.p = fmaf(s, scale, mk) - lse_i;")],
+    "bwd: no loads": [
+        ("  load_rows(q_addr, q + base, hd, 0, rows, L, kBwdThreads);\n"
+         "  load_rows(k_addr, k + base, hd, 0, rows, L, kBwdThreads);\n"
+         "  load_rows(v_addr, v + base, hd, 0, rows, L, kBwdThreads);\n"
+         "  load_rows(g_addr, gout + base, hd, 0, rows, L, kBwdThreads);\n", "")],
+    "bwd: no stores": [
+        ("  store_rows(q_tile, dq + base, hd, 0, rows, L, kBwdThreads);\n",
+         "  if (L < 0) {\n  store_rows(q_tile, dq + base, hd, 0, rows, L, kBwdThreads);\n"),
+        ("  store_rows(v_tile, dv + base, hd, 0, rows, L, kBwdThreads);\n}",
+         "  store_rows(v_tile, dv + base, hd, 0, rows, L, kBwdThreads);\n  }\n}")],
+    "bwd: no pass 1 (row term 0)": [
+        ("    for (int kt = 0; kt < tiles; ++kt) {\n      float s[32], dp[32];",
+         "    for (int kt = 0; kt < (L < 0 ? tiles : 0); ++kt) {\n      float s[32], dp[32];")],
+    "bwd: no pass 3 (dq)": [
+        ("    for (int kk = 0; kk < rows / 16; ++kk)\n      wgmma::Op<64>::ss<1, 1>(acc_q,",
+         "    for (int kk = 0; kk < (L < 0 ? rows / 16 : 1); ++kk)\n"
+         "      wgmma::Op<64>::ss<1, 1>(acc_q,")],
+    "bwd: no ds^T stores to shared memory": [
+        ("        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_lo, j) + col2 * 2) = ds_lo;\n"
+         "        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_hi, j) + col2 * 2) = ds_hi;\n",
+         "        if (L < 0) {\n"
+         "        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_lo, j) + col2 * 2) = ds_lo;\n"
+         "        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_hi, j) + col2 * 2) = ds_hi;\n"
+         "        }\n")],
+}
+
+
+def build_all(tmp: Path) -> dict:
+    """Every variant's library, all `nvcc` processes started together."""
+    cmds, libs = [], {}
+    for name, edits in VARIANTS.items():
+        text = SOURCE.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise SystemExit(f"{name}: the source has {text.count(old)} of\n{old}")
+            text = text.replace(old, new)
+        stem = "".join(c if c.isalnum() else "_" for c in name)
+        src, libs[name] = tmp / f"{stem}.cu", tmp / f"{stem}.so"
+        src.write_text(text)
+        cmds.append([cuda_lib.find_nvcc(), *cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC),
+                     "-shared", "-o", str(libs[name]), str(src)])
+    for name, proc in zip(VARIANTS, cuda_lib._run_all(cmds)):
+        if proc.returncode != 0:
+            raise SystemExit(f"{name}: nvcc failed\n{proc.stdout}\n{proc.stderr}")
+        libs[name] = ctypes.CDLL(str(libs[name]))
+        for entry in (FWD, BWD):
+            fn = getattr(libs[name], entry)
+            fn.argtypes, fn.restype = cuda_lib._SIGNATURES[entry], ctypes.c_int
+    return libs
+
+
+def event_ms(fn, iters: int = 100, warmup: int = 10) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    g = torch.Generator(dev).manual_seed(0)
+    b, l, h = 48, 170, 12
+    q, k, v, gout = (torch.randn(b, l, h * 64, device=dev, generator=g).to(torch.bfloat16)
+                     for _ in range(4))
+    mask = torch.zeros(b, l, device=dev)
+    out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+    lse = torch.empty(b, h, l, device=dev)
+    stream = cuda_lib.stream_handle(dev)
+    ptr = lambda *ts: [t.data_ptr() for t in ts]
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = build_all(Path(tmp))
+        for rate_args, rate in (((0, 0, 1.0, 0), 0.0), ((1, 429496730, 1.0 / 0.9, 7), 0.1)):
+            for name, lib in libs.items():
+
+                def fwd():
+                    status = getattr(lib, FWD)(*ptr(q, k, v, mask, out, lse), b, l, h,
+                                               *rate_args, stream)
+                    cuda_lib.check(status, FWD)
+
+                def bwd():
+                    status = getattr(lib, BWD)(*ptr(q, k, v, mask, gout, lse, dq, dk, dv), b, l,
+                                               h, *rate_args, stream)
+                    cuda_lib.check(status, BWD)
+
+                fwd()  # the backward reads the forward's lse
+                torch.cuda.synchronize()
+                line = f"rate {rate} {name:40s}"
+                if not name.startswith("bwd"):
+                    line += f" forward {event_ms(fwd):.4f} ms"
+                if not name.startswith("fwd"):
+                    line += f" backward {event_ms(bwd):.4f} ms"
+                print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

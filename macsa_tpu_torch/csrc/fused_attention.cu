@@ -1,5 +1,5 @@
 // Fused multi-head self-attention with dropout, forward and backward
-// (kernel K1) for Hopper (sm_90a).
+// (kernel K1) for Hopper (sm_90a): the CUDA-core variant.
 //
 // Replaces: macsa_tpu/ops/fused_attention.py, `_fwd_kernel` (forward) and
 // `_bwd_kernel` (backward), both wired by `_call` into the custom VJP
@@ -20,20 +20,28 @@
 // so the forward (query tiles) and the backward (query and key tiles) draw
 // the same bits whatever block computes an element.  Hopper blocks run in
 // no order, so the TPU kernel's draw-in-a-fixed-order stream does not carry
-// over.  `dropout_bits` in ops/fused_attention.py is the same function.
+// over.  The hash lives in `attention_dropout.cuh`; `dropout_bits` in
+// ops/fused_attention.py is the same function.
 //
 // Layout: q/k/v/g/out/dq/dk/dv are [B, L, H*D] (the projections' own layout);
 // element x[b, i, h*D + c] is read in place, so no head transpose runs
 // around the kernels.  mask is the [B, L] additive f32 row, broadcast over
 // heads and queries.  lse and row_term are [B, H, L] f32.
 //
-// What bounds them on the H100: at the train shape (B*A = 48 views, L = 170,
-// H = 12, D = 64) the forward is ~2.1 GFLOP and reads ~6 MB in bf16; the
-// backward recomputes the scores and does ~4.5x the forward's products (two
-// dot products per element for the row term, three for dq, four for dk/dv).
-// Both are far below what the tensor cores could do, so these simple
-// versions are bound by shared-memory traffic and FMA issue on the CUDA
-// cores, not by device memory.
+// What bounds them on the H100 (3.35 TB/s; 67 TFLOP/s f32 outside the
+// tensor cores): at the train shape (B*A = 48 views, L = 170, H = 12,
+// D = 64) the forward is 4 B H L^2 D = 4.261 GFLOP and moves q, k, v, the
+// output and the mask row once each, 50.17 MB in bf16 (0.0150 ms; 100.3 MB
+// in f32); the backward is 10 B H L^2 D = 10.65 GFLOP (the scores again, dP,
+// dV, dQ, dK) and moves q, k, v, g, dq, dk, dv, the mask row and two f32 row
+// terms, 88.55 MB in bf16 (0.0264 ms).  These CUDA-core kernels recompute:
+// the forward reads K and V once per query tile (6x), the backward forms
+// the scores and dP three times (~22 B H L^2 D of products in all), so they
+// are bound by shared-memory traffic and FMA throughput, not by device memory.
+// They are the variant for f32, for head width 32 and for the backward of
+// rows longer than 192; bf16 at head width 64 runs the tensor-core variant
+// of `fused_attention_wgmma.cu` (picked by `attention_variant` in
+// ops/fused_attention.py).
 //
 // Design.  Forward: one block per (query tile of 32 rows, head, batch row);
 // 4 warps, each owning 8 query rows.  The block walks the keys in tiles of
@@ -52,14 +60,19 @@
 // logsumexp.  Tiles are f32 in shared memory (< 48 KB, no opt-in needed):
 // rows that a warp reads as float4 broadcasts, and transposed tiles with
 // one column of padding, so per-lane reads and the transposing stores are
-// free of bank conflicts.  wgmma/TMA tiles are later work.
+// free of bank conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_dropout.cuh"
+
 namespace {
+
+using attention::Dropout;
+using attention::row_key;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -94,31 +107,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
   return x;
 }
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-
-// the hash of (seed, b, h, i); the element's bits are mix32(row_key ^ j)
-__device__ __forceinline__ uint32_t row_key(uint32_t seed, int b, int h, int i) {
-  return mix32(mix32(mix32(mix32(seed) ^ static_cast<uint32_t>(b)) ^ static_cast<uint32_t>(h)) ^
-               static_cast<uint32_t>(i));
-}
-
-struct Dropout {
-  int on;             // rate > 0
-  uint32_t threshold;  // keep iff bits >= threshold
-  float inv_keep;     // 1 / (1 - rate), rounded to f32
-  uint32_t seed;
-  __device__ __forceinline__ bool keep(uint32_t key, int j) const {
-    return mix32(key ^ static_cast<uint32_t>(j)) >= threshold;
-  }
-};
 
 struct Geometry {
   long long hd, base;  // row stride H*D; offset of (b, 0, h*D)
@@ -482,15 +470,6 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-Dropout make_dropout(int on, unsigned threshold, float inv_keep, unsigned seed) {
-  Dropout d;
-  d.on = on;
-  d.threshold = threshold;
-  d.inv_keep = inv_keep;
-  d.seed = seed;
-  return d;
-}
-
 template <typename T, int D>
 void launch_fwd(const void* q, const void* k, const void* v, const void* mask, void* out,
                 void* lse, int B, int L, int H, Dropout drop, cudaStream_t stream) {
@@ -538,7 +517,7 @@ extern "C" int macsa_fused_attention_fwd(const void* q, const void* k, const voi
                                          unsigned seed, void* stream) {
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(dropout, keep_threshold, inv_keep, seed);
+  const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
   if (D == 64) {
     bf16 ? launch_fwd<__nv_bfloat16, 64>(q, k, v, mask, out, lse, B, L, H, drop, s)
          : launch_fwd<float, 64>(q, k, v, mask, out, lse, B, L, H, drop, s);
@@ -562,7 +541,7 @@ extern "C" int macsa_fused_attention_bwd(const void* q, const void* k, const voi
                                          unsigned seed, void* stream) {
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop = make_dropout(dropout, keep_threshold, inv_keep, seed);
+  const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
   if (D == 64) {
     return bf16 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, mask, g, lse, row_term, dq, dk, dv,
                                                 B, L, H, drop, s)

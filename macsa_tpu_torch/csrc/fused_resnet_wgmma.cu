@@ -89,10 +89,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_tiles.cuh"
 #include "wgmma_ops.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 using bf162 = __nv_bfloat162;
 
@@ -101,41 +103,7 @@ constexpr int kBM = 128;             // rows of a block tile, 64 per warpgroup
 constexpr int kBK = 64;              // k per ring stage: one swizzled 128-byte row
 constexpr int kStages = 4;           // ring depth of K5 (K4: kK4Stages)
 constexpr int kATile = kBM * kBK * 2;
-constexpr int kAlign = 1024;         // swizzle atoms are 1024-byte aligned
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid (src is not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int PENDING> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-// orders this thread's view of shared memory before the tensor cores' reads
-__device__ __forceinline__ void fence_async_proxy() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t leading, uint32_t stride) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(leading >> 4) << 16) |
-         (static_cast<uint64_t>(stride >> 4) << 32) | (1ull << 62);
-}
 __device__ __forceinline__ uint64_t a_desc(uint32_t tile, int wg) {
   return make_desc(tile + wg * 64 * 128, 16, 1024);
 }
@@ -325,11 +293,6 @@ __device__ __forceinline__ void finish8(const float* staged, bool has_residual, 
     o2[i] = relu ? __floats2bfloat162_rn(fmaxf(y[2 * i], 0.f), fmaxf(y[2 * i + 1], 0.f))
                  : __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
   *reinterpret_cast<uint4*>(out) = packed;
-}
-
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  const uint32_t addr = smem_u32(raw);
-  return raw + (((addr + kAlign - 1) & ~static_cast<uint32_t>(kAlign - 1)) - addr);
 }
 
 // ---------------------------------------------------------------------------

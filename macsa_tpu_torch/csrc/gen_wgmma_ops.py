@@ -6,14 +6,17 @@ matrix multiply for bf16 operands and f32 accumulators.
 
 A `wgmma.mma_async` names every accumulator register of a thread as an
 operand (N/2 of them for an m64nNk16 tile), so the wrappers are long and
-regular; this script writes them for N in {64, 128}, with A read from
+regular; this script writes them for N in {64, 128, 192}, with A read from
 shared memory through a descriptor (`Op<N>::ss`) or from registers
-(`Op<N>::rs`).  The header is committed; rerun the script to change it.
+(`Op<N>::rs`).  The instruction's transpose bits are template arguments
+(`ss<TA, TB>`, `rs<TB>`): 0 for an operand stored K-major (k contiguous),
+1 for one stored MN-major.  The defaults are a weight matrix's: A [m][k],
+B [k][n].  The header is committed; rerun the script to change it.
 """
 
 from pathlib import Path
 
-WIDTHS = (64, 128)
+WIDTHS = (64, 128, 192)
 
 HEADER = '''\
 // Generated by gen_wgmma_ops.py; do not edit by hand.
@@ -21,9 +24,14 @@ HEADER = '''\
 // m64nNk16 bf16 x bf16 -> f32 warpgroup products (sm_90a).  d[N/2] is the
 // thread's share of the 64 x N accumulator: d[4j], d[4j+1] are row
 // 16*warp + lane/4, columns 8j + 2*(lane%4) and the next; d[4j+2], d[4j+3]
-// the same columns of row + 8.  B is always read from shared memory
-// through a descriptor with the transpose bit set (B stored [k][n], n
-// contiguous).  `accumulate` = 0 overwrites d, else adds to it.
+// the same columns of row + 8.  An A fragment in registers is a[0], a[1]:
+// rows 16*warp + lane/4 and + 8, k = 2*(lane%4) and the next as one bf16
+// pair; a[2], a[3]: the same rows, k + 8: the accumulator's own layout, 16
+// columns at a time.  B is always read from shared memory through a
+// descriptor.  TA / TB are the transpose bits: 0 for an operand stored
+// K-major ([m][k] or [n][k], k contiguous), 1 for MN-major ([k][m] or
+// [k][n]); the defaults take A [m][k] and B [k][n].  `accumulate` = 0
+// overwrites d, else adds to it.
 #pragma once
 #include <stdint.h>
 
@@ -49,27 +57,30 @@ def op(n: int) -> str:
     d = operands(n_acc, 0)
     return f'''
 template <> struct Op<{n}> {{
-  // A and B from shared memory (A stored [m][k], k contiguous)
+  // A and B from shared memory
+  template <int TA = 0, int TB = 1>
   static __device__ __forceinline__ void ss(float (&d)[{n_acc}], uint64_t desc_a, uint64_t desc_b,
                                             int accumulate) {{
     asm volatile(
         "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{n_acc + 2}, 0;\\n"
         "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
         "{{{d}}}, "
-        "%{n_acc}, %{n_acc + 1}, p, 1, 1, 0, 1;\\n}}\\n"
+        "%{n_acc}, %{n_acc + 1}, p, 1, 1, %{n_acc + 3}, %{n_acc + 4};\\n}}\\n"
         : {acc_constraints(n_acc)}
-        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TA), "n"(TB));
   }}
   // A from registers (the m16k16 fragment of each warp), B from shared memory
+  template <int TB = 1>
   static __device__ __forceinline__ void rs(float (&d)[{n_acc}], const uint32_t (&a)[4],
                                             uint64_t desc_b, int accumulate) {{
     asm volatile(
         "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{n_acc + 5}, 0;\\n"
         "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
         "{{{d}}}, "
-        "{{%{n_acc}, %{n_acc + 1}, %{n_acc + 2}, %{n_acc + 3}}}, %{n_acc + 4}, p, 1, 1, 1;\\n}}\\n"
+        "{{%{n_acc}, %{n_acc + 1}, %{n_acc + 2}, %{n_acc + 3}}}, %{n_acc + 4}, p, 1, 1, %{n_acc + 6};\\n}}\\n"
         : {acc_constraints(n_acc)}
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+          "n"(TB));
   }}
 }};
 '''

@@ -14,10 +14,16 @@ computes an element, and the plain PyTorch versions reproduce them exactly.
 It is not the TPU's PRNG stream: only the keep rate and independence carry
 over, as between the TPU kernel and `jax.random` in the JAX package.
 
-On a CUDA tensor `fused_self_attention` launches the hand-written kernels
-(`macsa_tpu_torch/csrc/fused_attention.cu`): the forward, and under autograd
-the backward.  On a CPU tensor it runs `attention_reference`, the plain
-version, and autograd differentiates that.
+On a CUDA tensor `fused_self_attention` launches the hand-written kernels:
+the forward, and under autograd the backward.  Each has two variants,
+picked by `attention_variant` from the dtype and the shape alone: "wgmma"
+(`macsa_tpu_torch/csrc/fused_attention_wgmma.cu`: bf16 at head width 64,
+every product on the tensor cores, the backward in one launch) and "simt"
+(`macsa_tpu_torch/csrc/fused_attention.cu`: f32 sums on the CUDA cores,
+f32 or bf16, head width 32 or 64, any length).  `cuda_lib.launch_counts`
+counts each launch under the kernel's name and under "<name>.<variant>".
+On a CPU tensor it runs `attention_reference`, the plain version, and
+autograd differentiates that.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from macsa_tpu_torch.ops import cuda_lib
 
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64)  # head widths the kernels are instantiated for
+WGMMA_HEAD_DIM = 64   # the tensor-core kernels: one head row is one 128-byte tile row
+WGMMA_BWD_MAX_LEN = 192  # the backward keeps a head's q, k, v, g in one block's shared memory
 
 _M32 = 0xFFFFFFFF
 _MIX1, _MIX2 = 0x7FEB352D, 0x846CA68B  # the 32-bit finalizer of csrc/fused_attention.cu
@@ -197,6 +205,26 @@ def _check_cuda_args(q, k, v, mask, num_heads, *extra):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:  # rows are fetched and written 16 bytes at a time
+            raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def attention_variant(dtype: torch.dtype, head_dim: int, length: int,
+                      backward: bool = False) -> str:
+    """Which K1 kernel takes [B, length, H*head_dim] on a CUDA tensor:
+    "wgmma" for bf16 at head width 64 (the forward at any length, the
+    backward up to 192 rows), else "simt": f32 (TF32 products would not
+    hold the f32 tolerances), head width 32 (half a swizzled tile row), and
+    the backward of longer rows (a head no longer fits one block)."""
+    if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM \
+            and not (backward and length > WGMMA_BWD_MAX_LEN):
+        return "wgmma"
+    return "simt"
+
+
+def _count(name: str, variant: str) -> None:
+    cuda_lib.launch_counts[name] += 1
+    cuda_lib.launch_counts[f"{name}.{variant}"] += 1
 
 
 def _dropout_args(rate: float, seed: int):
@@ -214,18 +242,23 @@ def _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse):
            if with_lse else None)
     if out.numel() == 0:
         return out, lse
-    status = cuda_lib.library().macsa_fused_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        lse.data_ptr() if with_lse else None,
-        b, l, num_heads, hd // num_heads, int(q.dtype == torch.bfloat16),
-        *_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
-    cuda_lib.check(status, "macsa_fused_attention_fwd")
-    cuda_lib.launch_counts["fused_self_attention"] += 1
+    variant = attention_variant(q.dtype, hd // num_heads, l)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
+                lse.data_ptr() if with_lse else None)
+    tail = (*_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
+    if variant == "wgmma":
+        status = cuda_lib.library().macsa_fused_attention_fwd_wgmma(
+            *pointers, b, l, num_heads, *tail)
+    else:
+        status = cuda_lib.library().macsa_fused_attention_fwd(
+            *pointers, b, l, num_heads, hd // num_heads, int(q.dtype == torch.bfloat16), *tail)
+    cuda_lib.check(status, f"macsa_fused_attention_fwd ({variant})")
+    _count("fused_self_attention", variant)
     return out, lse
 
 
 def _launch_bwd(q, k, v, mask, lse, g, num_heads, rate, seed):
-    """Backward kernels (two launches, one count) -> (dq, dk, dv)."""
+    """Backward kernel (one count whatever its launches) -> (dq, dk, dv)."""
     _check_cuda_args(q, k, v, mask, num_heads, ("g", g), ("lse", lse))
     if g.shape != q.shape or g.dtype != q.dtype:
         raise ValueError(f"g must be {q.dtype} {tuple(q.shape)}, "
@@ -234,14 +267,21 @@ def _launch_bwd(q, k, v, mask, lse, g, num_heads, rate, seed):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     if q.numel() == 0:
         return dq, dk, dv
-    row_term = torch.empty_like(lse)  # rowsum(dp * p), written by the dq launch
-    status = cuda_lib.library().macsa_fused_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), row_term.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, l, num_heads, hd // num_heads, int(q.dtype == torch.bfloat16),
-        *_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
-    cuda_lib.check(status, "macsa_fused_attention_bwd")
-    cuda_lib.launch_counts["fused_self_attention_bwd"] += 1
+    variant = attention_variant(q.dtype, hd // num_heads, l, backward=True)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), g.data_ptr(),
+              lse.data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    tail = (*_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
+    if variant == "wgmma":  # one launch; the row term stays in the block
+        status = cuda_lib.library().macsa_fused_attention_bwd_wgmma(
+            *inputs, *grads, b, l, num_heads, *tail)
+    else:
+        row_term = torch.empty_like(lse)  # rowsum(dp * p), written by the dq launch
+        status = cuda_lib.library().macsa_fused_attention_bwd(
+            *inputs, row_term.data_ptr(), *grads, b, l, num_heads, hd // num_heads,
+            int(q.dtype == torch.bfloat16), *tail)
+    cuda_lib.check(status, f"macsa_fused_attention_bwd ({variant})")
+    _count("fused_self_attention_bwd", variant)
     return dq, dk, dv
 
 
