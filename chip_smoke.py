@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and fine-tune train step on one CUDA card.
+"""Drive the PyTorch port on one CUDA card: serving path, train step, fine-tune driver.
 
     python3 chip_smoke.py
 
@@ -27,6 +27,13 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
   of `finetune.py`) for a few steps on one batch in f32 and bf16, after
   holding one step's loss and gradients through the kernels (K3's
   included) against the plain path's at dropout 0,
+* writes a synthetic dataset (`data/synth.py`: 64 train / 16 dev / 16 test
+  reviews, 256x256 PNGs, a 12-layer text config) and runs the fine-tune
+  driver on it from files (`train/finetune.main`, the defaults: ResNet-152,
+  L = 170, 7 images, 4 ROIs, batch 8, bf16; train, eval and test, 2
+  epochs), checks its artifacts, that the second epoch ran on cached
+  features (no K2 launch, 12 K1 forward and backward launches a step), and
+  that a second call resumes from `last` for exactly one more epoch,
 * and, after the last timed step (so that no timing has the profiler in
   its process), breaks two bf16 train steps' device time down by kernel
   and reads the device time of K1's and SDPA's backward,
@@ -38,19 +45,21 @@ JSON verdict.  Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 5, 10
+BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 3, 10
 PROFILE_STEPS, PROFILE_ROWS = 2, 24  # the bf16 train step's device-time breakdown
 STAGE3_IMAGES = BATCH * (7 + 28)  # one serving batch: 8 x (7 images + 28 ROI crops)
 
@@ -93,6 +102,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
+    """Mean device time of `fn` with the host out of the way: `per_graph`
+    calls captured in a CUDA graph, the graph replayed `replays` times
+    between events.  For kernels so short that one Python call of their
+    wrapper costs the host more than the card."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (per_graph * replays)
 
 
 def device_profile(fn, iters: int, warmup: int) -> list:
@@ -176,16 +207,23 @@ def phase_k2(dev, image_prep):
             if not ok:
                 raise AssertionError(f"K2 {name} {dtype}: kernel disagrees with plain "
                                      f"(max abs err {err})")
-            ms = cuda_ms(lambda: kernel(x, dtype))
-            plain_ms = cuda_ms(lambda: plain(x, dtype))
+            call_ms = cuda_ms(lambda: kernel(x, dtype))
+            ms = graph_ms(lambda: kernel(x, dtype))
+            # the plain version copies its constants from the host in every
+            # call, which no CUDA graph can capture; its passes over the
+            # whole batch keep the card busy, so back-to-back calls time the card
+            plain_ms = plain_call_ms = cuda_ms(lambda: plain(x, dtype))
             # an invalid frame needs only its validity word read; every
             # output element is written; scale, subtract, scale per element
             read = nbytes(x) if valid is None else \
                 int(valid.sum()) * nbytes(x[(0,) * valid.dim()]) + int((~valid).sum()) * 4
             b = bound(3.0 * got.numel(), read + nbytes(got), torch.float32)
-            report[(name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms, **b}
+            report[(name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                                     "call_ms": call_ms, "plain_call_ms": plain_call_ms, **b}
             print(f"phase k2 {name} {str(dtype)[6:]} {tuple(x.shape)}: max_abs_err={err:.3g} "
-                  f"(f32 <= 1 ulp, bf16 equal) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"(f32 <= 1 ulp, bf16 equal) kernel_ms={ms:.4f} (device time, 20 launches in "
+                  f"a CUDA graph; {call_ms:.4f} a call of the wrapper back to back) "
+                  f"plain_ms={plain_ms:.4f} (calls back to back: it cannot be captured) "
                   f"{bound_text(b)}")
     return report
 
@@ -385,9 +423,26 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-def phase_k3(dev, ba):
+def phase_k3(dev, ba, cuda_lib):
     """K3 against its plain version at the serving shape, forward and
-    backward (the backward is the plain analytic function itself)."""
+    backward (the backward is the plain analytic function itself).  One
+    call of the wrapper costs the host more than the kernel costs the card,
+    so the kernel's time is the device's (launches replayed from a CUDA
+    graph), beside an empty kernel's timed the same way: the floor."""
+    stream = cuda_lib.stream_handle
+    with tempfile.TemporaryDirectory() as tmp:
+        # a measuring aid, built here into a library of its own: it is no
+        # part of the port's kernel library
+        so = os.path.join(tmp, "empty_launch.so")
+        nvcc = [cuda_lib.find_nvcc(), *cuda_lib.NVCC_FLAGS, "-shared", "-o", so,
+                str(cuda_lib.CSRC / "measure" / "empty_launch.cu")]
+        built = subprocess.run(nvcc, capture_output=True, text=True, timeout=300)
+        if built.returncode != 0:
+            raise RuntimeError(f"nvcc failed: {' '.join(nvcc)}\n{built.stdout}\n{built.stderr}")
+        empty = ctypes.CDLL(so).macsa_empty_launch
+        empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+        empty_ms = graph_ms(lambda: cuda_lib.check(empty(stream(dev)), "macsa_empty_launch"))
+    print(f"phase k3 an empty kernel, 20 launches in a CUDA graph: {empty_ms:.4f} ms a launch")
     g = torch.Generator(dev).manual_seed(9)
     bh, n, d = BATCH * NUM_ASPECTS * 7 * 8, 4, 96  # samples x aspects x images x heads
     q, k, v, gout = (torch.randn(bh, n, d, device=dev, generator=g) for _ in range(4))
@@ -414,15 +469,20 @@ def phase_k3(dev, ba):
         if not grad_err <= 1e-6 or grads[3][gc.float() <= 1e-6].any():
             raise AssertionError(f"K3 {dtype} backward: rel err {grad_err}, or a gradient "
                                  f"at a zero gate")
-        ms = cuda_ms(lambda: ba.fused_box_attention(qc, kc, vc, gc))
-        plain_ms = cuda_ms(lambda: ba.box_attention_reference(qc, kc, vc, gc))
+        call_ms = cuda_ms(lambda: ba.fused_box_attention(qc, kc, vc, gc))
+        ms = graph_ms(lambda: ba.fused_box_attention(qc, kc, vc, gc))
+        plain_call_ms = cuda_ms(lambda: ba.box_attention_reference(qc, kc, vc, gc))
+        plain_ms = graph_ms(lambda: ba.box_attention_reference(qc, kc, vc, gc))
         # scores and the weighted sum: 4 bh n^2 d operations
         bd = bound(4.0 * bh * n * n * d, nbytes(qc, kc, vc, gc, want), dtype)
-        report[dtype] = {"err": err, "ms": ms, "plain_ms": plain_ms, **bd}
+        report[dtype] = {"err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
+                         "plain_call_ms": plain_call_ms, **bd}
         print(f"phase k3 {str(dtype)[6:]} [{bh},{n},{d}] gates {gc.eq(0).float().mean():.3f} "
               f"zero: max_abs_err={err:.3g} (atol {atol} + rtol {rtol}); backward rel err "
-              f"{grad_err:.3g}, zero dgates at zero gates; kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} {bound_text(bd)}")
+              f"{grad_err:.3g}, zero dgates at zero gates; kernel_ms={ms:.4f} (device time, 20 "
+              f"launches in a CUDA graph; {call_ms:.4f} a call of the wrapper back to back: the "
+              f"host's) plain_ms={plain_ms:.4f} (timed the same way; {plain_call_ms:.4f} a call "
+              f"back to back) {bound_text(bd)}")
     return report
 
 
@@ -896,7 +956,7 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
         m.load_state_dict(weights, strict=True)
         v.load_state_dict(visual.state_dict(), strict=True)
         # finetune.py's defaults: 7e-5 encoder / 7e-4 head, wd 0.01, clip 1.0
-        opt = optim.AdamW(m.named_parameters(), optim.linear_warmup_schedule(7e-5, 1, 1000),
+        opt = optim.AdamW(m, optim.linear_warmup_schedule(7e-5, 1, 1000),
                           weight_decay=0.01, max_grad_norm=1.0,
                           head_learning_rate=optim.linear_warmup_schedule(7e-4, 1, 1000))
         return steps.make_finetune_train_step(train_state.TrainState.create(m, v, opt))
@@ -918,7 +978,9 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
         losses = [x.item() for x in losses]
-        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        # one batch at a rate of 7e-4 with dropout on: single steps go up
+        # as well as down, so the last three are held against the first
+        if not all(math.isfinite(x) for x in losses) or not sum(losses[-3:]) / 3 < losses[0]:
             raise AssertionError(f"train {dtype}: losses {losses} not finite and falling")
         results[dtype] = (ms, losses, issue_ms, cpu_ms)
         if dtype != "bfloat16":  # the bf16 step is profiled below
@@ -953,6 +1015,107 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     return launches
 
 
+FINETUNE_ARTIFACTS = ("best.pt", "last.pt", "train.log", "metrics.jsonl",
+                      "test_results_fcmf.txt", "test_predictions_formatted.txt")
+
+
+def phase_finetune(card, cuda_lib, synth, finetune):
+    """The fine-tune driver from files at full width: a synthetic dataset
+    written to a temporary directory, `finetune.main` with its defaults
+    (ResNet-152, L = 170, 7 images, 4 ROIs, batch 8, bf16, the card) for
+    two epochs with eval and test, then a second `main` that resumes from
+    `last` for one more epoch."""
+    n_train, n_dev, n_test, epochs, log_every = 64, 16, 16, 2, 4
+    layers_per_pass = 12
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        t0 = time.perf_counter()
+        synth.write_dataset(data, n_train=n_train, n_layers=layers_per_pass, image_size=256,
+                            seed=0, n_dev=n_dev, n_test=n_test)
+        written_s = time.perf_counter() - t0
+        out = os.path.join(tmp, "out")
+        argv = ["--data_dir", os.path.join(data, "data"), "--image_dir",
+                os.path.join(data, "images"), "--output_dir", out, "--pretrained_hf_model",
+                os.path.join(data, "tok"), "--seed", "0", "--log_every", str(log_every),
+                "--do_train", "--do_eval"]
+        # the main path: every count from 0, read right after
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = finetune.main(argv + ["--do_test", "--num_train_epochs", str(epochs)])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = dict(cuda_lib.launch_counts)
+        missing = [name for name in FINETUNE_ARTIFACTS
+                   if not os.path.isfile(os.path.join(out, name))]
+        if missing:
+            raise AssertionError(f"finetune: artifacts missing: {missing}")
+        with open(os.path.join(out, "test_results_fcmf.txt")) as f:
+            report_lines = f.read().splitlines()
+        if len(report_lines) != NUM_ASPECTS + 1 or not report_lines[-1].startswith("Average: P="):
+            raise AssertionError(f"finetune: test report {report_lines}")
+        steps = n_train // BATCH
+        cold, warm = result["epochs"]
+        for name, ep in (("cold", cold), ("warm", warm)):
+            if ep["steps"] != steps or not ep["losses"] or \
+                    not all(math.isfinite(x) for x in ep["losses"]):
+                raise AssertionError(f"finetune {name} epoch: {ep}")
+        k1 = layers_per_pass * steps
+        want_cold = {"device_normalize": 2 * steps}
+        want_warm = {}
+        for name in ("fused_self_attention", "fused_self_attention_bwd"):
+            for want in (want_cold, want_warm):
+                want.update({name: k1, f"{name}.wgmma": k1})
+        if cold["kernel_launches"] != want_cold or warm["kernel_launches"] != want_warm:
+            raise AssertionError(f"finetune launches: cold {cold['kernel_launches']} (want "
+                                 f"{want_cold}), warm {warm['kernel_launches']} (want "
+                                 f"{want_warm}: no K2, the cache skipped the ResNet)")
+        f1 = result["test"]["average"]["f1"]
+        if not (math.isfinite(f1) and 0.0 <= f1 <= 1.0 and 0.0 < result["best_dev_f1"] <= 1.0):
+            raise AssertionError(f"finetune scores: test {f1}, dev {result['best_dev_f1']}")
+        for name, ep in (("cold", cold), ("warm", warm)):
+            wall_ms = ep["seconds"] * 1e3 / ep["steps"]
+            print(f"phase finetune {name} epoch: {ep['samples'] / ep['seconds']:.2f} samples/s, "
+                  f"{wall_ms:.2f} ms/step wall, the host waited "
+                  f"{ep['loader_wait_seconds'] / ep['seconds']:.3f} of the epoch for decoded "
+                  f"batches; {ep['steps']} steps of batch {BATCH}, losses "
+                  + " ".join(f"{x:.4f}" for x in ep["losses"]) + f", on {card}")
+        print(f"phase finetune main: {main_s:.1f} s for {epochs} epochs + dev eval each + test "
+              f"({n_train}/{n_dev}/{n_test} reviews, dataset written in {written_s:.1f} s); dev "
+              f"macro-F1 {result['best_dev_f1']:.4f}, test macro-F1 {f1:.4f}; launches "
+              f"{launches}; cold epoch {cold['kernel_launches']}, warm epoch "
+              f"{warm['kernel_launches']}")
+
+        # resume: one more epoch from `last`, starting at the saved step
+        resumed = finetune.main(argv + ["--num_train_epochs", str(epochs + 1),
+                                        "--resume_from_checkpoint", "last"])
+        more = resumed["epochs"]
+        if len(more) != 1 or more[0]["epoch"] != epochs or \
+                more[0]["first_step"] != epochs * steps or more[0]["steps"] != steps or \
+                not more[0]["losses"] or not all(math.isfinite(x) for x in more[0]["losses"]):
+            raise AssertionError(f"finetune resume: {more}")
+        print(f"phase finetune resume from last: epoch {more[0]['epoch']} only, from step "
+              f"{more[0]['first_step']}, {more[0]['steps']} steps, losses "
+              + " ".join(f"{x:.4f}" for x in more[0]["losses"]))
+
+        # what the steps cost the card alone: two more epochs (a cold and a
+        # warm one: a new process state starts with empty caches) under
+        # torch.profiler, after every wall time above was taken
+        profiled = finetune.main(argv + ["--num_train_epochs", str(epochs + 3),
+                                         "--resume_from_checkpoint", "last", "--profile_dir",
+                                         os.path.join(tmp, "traces")])["epochs"]
+        if [ep["epoch"] for ep in profiled] != [epochs + 1, epochs + 2] or \
+                len(os.listdir(os.path.join(tmp, "traces"))) != 2:
+            raise AssertionError(f"finetune profiled epochs: {profiled}")
+        for name, ep in zip(("cold", "warm"), profiled):
+            if not ep["device_kernel_ms_per_step"]:
+                raise AssertionError(f"finetune: the profiler saw no device time: {ep}")
+            print(f"phase finetune {name} epoch under torch.profiler: "
+                  f"{ep['device_kernel_ms_per_step']:.2f} ms/step of device time (kernels and "
+                  f"copies alone) beside {ep['seconds'] * 1e3 / ep['steps']:.2f} ms/step wall "
+                  f"with the profiler on; launches {ep['kernel_launches']}")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     from macsa_tpu_torch import config
@@ -961,7 +1124,8 @@ def main() -> int:
     from macsa_tpu_torch.ops import cuda_lib, image_prep
     from macsa_tpu_torch.ops import fused_attention as fa
     from macsa_tpu_torch.ops import fused_resnet as fr
-    from macsa_tpu_torch.train import optim, steps
+    from macsa_tpu_torch.data import synth
+    from macsa_tpu_torch.train import finetune, optim, steps
     from macsa_tpu_torch.train import state as train_state
 
     if not torch.cuda.is_available():
@@ -986,7 +1150,7 @@ def main() -> int:
     k2 = phase_k2(dev, image_prep)
     k1 = phase_k1(dev, cuda_lib, fa)
     k1_bwd = phase_k1_bwd(dev, cuda_lib, fa)
-    k3 = phase_k3(dev, ba)
+    k3 = phase_k3(dev, ba, cuda_lib)
     k4, k4_launches = phase_k4(dev, cuda_lib, fr)
     torch.cuda.empty_cache()
     k5 = phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr)
@@ -999,15 +1163,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches = phase_train(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
                                  image_prep, optim, train_state)
+    torch.cuda.empty_cache()
+    finetune_launches = phase_finetune(smi, cuda_lib, synth, finetune)
+    torch.cuda.empty_cache()
     phase_k1_bwd_device(k1_bwd)
 
     def entry(name, source, replaces, launched, err, timed):
         """One kernel of the `kernels` line: its launches on the paths, its
-        worst error over its phase, and the times of its bf16 case."""
+        worst error over its phase, and the times of its bf16 case.  Where
+        `ms` and `plain_ms` are device times replayed from a CUDA graph (K2,
+        K3), `call_ms` and `plain_call_ms` are the same two as back-to-back
+        Python calls, the way every other kernel's `ms` is taken (K2's
+        plain version cannot be captured: both of its times are calls)."""
+        both = {key: timed[key] for key in ("call_ms", "plain_call_ms") if key in timed}
         return {"name": name, "route": "cuda", "source": f"macsa_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launched, "max_abs_err": err,
                 "ms": timed["ms"], "plain_ms": timed["plain_ms"], "bound_ms": timed["bound_ms"],
-                "bound_by": timed["bound_by"], "library_ms": timed.get("library_ms")}
+                "bound_by": timed["bound_by"], "library_ms": timed.get("library_ms"), **both}
 
     bf16 = torch.bfloat16
     k1_bwd0 = k1_bwd[("-10000", bf16, 0.0)]  # rate 0: the case SDPA's backward is timed at
@@ -1018,13 +1190,15 @@ def main() -> int:
         entry("fused_self_attention", "fused_attention_wgmma.cu",
               "macsa_tpu/ops/fused_attention.py:92",
               launches["fused_self_attention"] + fused_launches["fused_self_attention"]
-              + train_launches["fused_self_attention"], k1_err, k1[("-10000", bf16)]),
+              + train_launches["fused_self_attention"]
+              + finetune_launches["fused_self_attention"], k1_err, k1[("-10000", bf16)]),
         entry("fused_self_attention_bwd", "fused_attention_wgmma.cu",
-              "macsa_tpu/ops/fused_attention.py:118", train_launches["fused_self_attention_bwd"],
-              k1b_err, k1_bwd0),
+              "macsa_tpu/ops/fused_attention.py:118", train_launches["fused_self_attention_bwd"]
+              + finetune_launches["fused_self_attention_bwd"], k1b_err, k1_bwd0),
         entry("device_normalize", "image_prep.cu", "macsa_tpu/ops/image_prep.py:36",
               launches["device_normalize"] + fused_launches["device_normalize"]
-              + train_launches["device_normalize"], max(r["err"] for r in k2.values()),
+              + train_launches["device_normalize"] + finetune_launches["device_normalize"],
+              max(r["err"] for r in k2.values()),
               k2[("packed_rois", bf16)]),
         entry("box_attention", "box_attention.cu", "macsa_tpu/ops/box_attention_kernel.py:37",
               fused_launches["box_attention"], max(r["err"] for r in k3.values()), k3[bf16]),

@@ -93,7 +93,8 @@ class FCMFConfig:
     # (ops/box_attention.py) when its dropout is not active; off by default
     # as in the JAX package
     use_pallas_box_attention: bool = False
-    # Multimodal Denoising Encoder; not ported yet, must stay False
+    # Multimodal Denoising Encoder on the patch branch when alpha < 1; not
+    # ported yet, so it must stay False unless alpha >= 1 (where it is unused)
     use_mde: bool = False
 
 

@@ -72,7 +72,8 @@ def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
-ACT2FN: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {"gelu": gelu_erf}
+ACT2FN: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "gelu": gelu_erf, "relu": F.relu, "swish": F.silu}
 
 
 class Dense(nn.Module):

@@ -1,7 +1,10 @@
 """Optimizers and LR schedules, the counterparts of `macsa_tpu/train/optim.py`.
 
 The reference recipe (run_multimodal_fcmf.py:247-314):
-* AdamW with a no-decay group for biases and LayerNorm weights,
+* AdamW with a no-decay group for biases and normalization weights,
+  decided by module type as the JAX package decides by leaf name (`bias`,
+  `out_bias`, `scale`): any bias, and the weight of any `LayerNormTF` or
+  `FrozenBatchNorm`, whatever the module is called,
 * dual learning rates: the classifier head (`classifier`, `text_pooler`)
   gets `classifier_head_learning_rate`, the rest the encoder rate,
 * HF-style linear warmup, counted in optimizer updates,
@@ -23,12 +26,17 @@ p <- p - lr * (adam + wd * p), with p taken before the update, is optax's
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Optional, Sequence, Tuple, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import torch
+from torch import nn
+
+from macsa_tpu_torch.models.layers import LayerNormTF
+from macsa_tpu_torch.models.resnet import FrozenBatchNorm
 
 Schedule = Callable[[int], float]
-NO_DECAY = ("bias", "LayerNorm.weight")  # run_multimodal_fcmf.py:249
+NO_DECAY_LEAVES = ("bias", "out_bias")  # run_multimodal_fcmf.py:249
+NORM_MODULES = (LayerNormTF, FrozenBatchNorm)  # their `weight` is JAX's `scale`
 HEAD_KEYWORDS = ("classifier", "text_pooler")  # run_multimodal_fcmf.py:252-286
 
 
@@ -45,9 +53,15 @@ def linear_warmup_schedule(base_lr: float, warmup_steps: int, total_steps: int) 
     return schedule
 
 
-def is_no_decay(name: str) -> bool:
-    """Biases and LayerNorm weights take no weight decay."""
-    return any(nd in name for nd in NO_DECAY)
+def no_decay_names(model: nn.Module) -> set:
+    """Names of the parameters that take no weight decay: every `bias` and
+    `out_bias`, and the `weight` of every normalization module."""
+    names = set()
+    for prefix, module in model.named_modules():
+        for leaf, _ in module.named_parameters(recurse=False):
+            if leaf in NO_DECAY_LEAVES or (leaf == "weight" and isinstance(module, NORM_MODULES)):
+                names.add(f"{prefix}.{leaf}" if prefix else leaf)
+    return names
 
 
 def is_head(name: str) -> bool:
@@ -75,17 +89,21 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None
 
 
 class AdamW:
-    """AdamW over named parameters, in four groups: encoder or head, with
-    or without decay (the JAX `make_adamw`)."""
+    """AdamW over a model's parameters, in four groups: encoder or head,
+    with or without decay (the JAX `make_adamw`).  Parameters with
+    `requires_grad` off are left out: never updated, never decayed, and not
+    counted in the clipping norm (the JAX drivers' `set_to_zero` branch for
+    `--freeze_encoder`)."""
 
-    def __init__(self, named_parameters: Iterable[Tuple[str, torch.nn.Parameter]],
+    def __init__(self, model: nn.Module,
                  learning_rate: Union[float, Schedule], weight_decay: float = 0.01,
                  eps: float = 1e-8, max_grad_norm: Optional[float] = 1.0,
                  head_learning_rate: Union[float, Schedule, None] = None,
                  accumulate_steps: int = 1):
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
-        named = [(n, p) for n, p in named_parameters if p.requires_grad]
+        no_decay = no_decay_names(model)
+        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.params = [p for _, p in named]
         self.schedules = {
             "encoder": _as_schedule(learning_rate),
@@ -96,7 +114,7 @@ class AdamW:
             for decay in (True, False):
                 ps = [p for n, p in named
                       if is_head(n) == (part == "head")
-                      and is_no_decay(n) != decay]
+                      and (n in no_decay) != decay]
                 if ps:
                     groups.append({"params": ps, "part": part,
                                    "weight_decay": weight_decay if decay else 0.0})
@@ -134,6 +152,20 @@ class AdamW:
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs to take the same next update: the
+        moments, the update count (the schedules' position) and the
+        accumulation in progress."""
+        return {"optimizer": self.optimizer.state_dict(), "updates": self.updates,
+                "micro": self._micro,
+                "acc": None if self._acc is None else [a.detach().clone() for a in self._acc]}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.updates, self._micro = int(state["updates"]), int(state["micro"])
+        self._acc = None if state["acc"] is None else [
+            a.to(p.device, p.dtype) for a, p in zip(state["acc"], self.params)]
 
 
 # ---------------------------------------------------------------------------

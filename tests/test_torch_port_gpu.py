@@ -183,6 +183,44 @@ def test_normalize_kernels_match_plain(cuda, dtype):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid_kind", ["all_valid", "all_invalid", "mixed"])
+@pytest.mark.parametrize("size", [224, 32, 30, 6, 2])
+def test_packed_normalize_kernel_over_frame_sizes(cuda, dtype, valid_kind, size):
+    """Bit for bit over frames whose word count is odd (224, 32: an even
+    count of pixel words, the tiled kernel, 224 with several tiles a frame)
+    and even (30, 6, 2: an odd count, the one-word-per-thread kernel in
+    bf16), all valid, all invalid and mixed; invalid frames are exact zeros."""
+    rng = np.random.default_rng(size)
+    lead = (3, 5) if size > 100 else (4, 7, 3)
+    images = rng.integers(0, 256, size=lead + (size, size, 3), dtype=np.uint8)
+    valid = {"all_valid": np.ones(lead, bool), "all_invalid": np.zeros(lead, bool),
+             "mixed": rng.uniform(size=lead) > 0.4}[valid_kind]
+    words = torch.from_numpy(image_prep.pack_pixels_u8(images, valid)).to(cuda)
+    assert (words.shape[-1] % 2 == 1) == (size in (224, 32))
+    before = cuda_lib.launch_counts["device_normalize"]
+    got = image_prep.unpack_normalize_pixels(words, dtype)
+    want = image_prep.unpack_normalize_pixels_reference(words, dtype)
+    torch.cuda.synchronize()
+    assert cuda_lib.launch_counts["device_normalize"] == before + 1
+    assert torch.equal(got, want)
+    assert not got[torch.from_numpy(~valid).to(cuda)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_bytes", [3, 12, 75, 4 * 2688 * 3, 4 * 2688 * 3 + 6, 1_000_003 * 3])
+def test_raw_normalize_kernel_over_lengths(cuda, dtype, n_bytes):
+    """Raw uint8 of lengths below a word, at and across tile edges, with
+    ragged tails, and from a view that starts off a 16-byte boundary."""
+    rng = np.random.default_rng(n_bytes)
+    flat = torch.from_numpy(rng.integers(0, 256, size=n_bytes + 12, dtype=np.uint8)).to(cuda)
+    for offset in (0, 4, 12):
+        raw = flat[offset:offset + n_bytes].view(-1, 3)
+        got = image_prep.normalize_images_u8(raw, dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, image_prep.normalize_images_u8_reference(raw, dtype))
+
+
 def _small_model_and_batch(**dropout):
     """A 2-layer FCMF at width 128 (head dim 32, one the kernels take), a
     small ResNet, and a loader-shaped batch with labels, all on the CPU."""
@@ -271,9 +309,14 @@ BOX_TOL = {torch.float32: dict(rtol=0, atol=1e-5), torch.bfloat16: dict(rtol=1e-
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,n,d", [(2688, 4, 96), (7, 1, 40), (9, 8, 33)])
+@pytest.mark.parametrize("bh,n,d", [(2688, 4, 96), (7, 1, 40), (9, 8, 33)]
+                         + [(37, n, d) for n in range(1, 9) for d in (32, 64, 96, 100)]
+                         + [(5, 3, 256), (5, 4, 264)])
 def test_box_attention_kernel_matches_plain(cuda, dtype, bh, n, d):
-    """[2688, 4, 96] is the serving shape: 8 samples x 6 aspects x 7 images x 8 heads."""
+    """[2688, 4, 96] is the serving shape: 8 samples x 6 aspects x 7 images
+    x 8 heads.  Widths 32, 64 and 96 are whole 16-byte chunks in both dtypes
+    (8, 16 or 32 lanes a slice); 100 is in f32 only, 33 and 40 in neither,
+    264 is too wide in both: those take the one-warp-per-slice kernel."""
     g = torch.Generator(cuda).manual_seed(3)
     q, k, v, gout = (torch.randn(bh, n, d, device=cuda, generator=g).to(dtype)
                      for _ in range(4))

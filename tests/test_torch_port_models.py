@@ -254,3 +254,44 @@ def test_init_weights_is_seeded():
     for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(x, y), name
     assert torch.isfinite(a.embeddings.word_embeddings.weight).all()
+
+
+@pytest.mark.parametrize("act", ["relu", "swish"])
+def test_bert_layer_hidden_act(rng, act):
+    """The activations of `ACT2FN` besides gelu."""
+    jc, tc = (dataclasses.replace(c, hidden_act=act) for c in model_cfgs())
+    x = rng.normal(size=(2, L, HIDDEN)).astype(np.float32)
+    mask = additive_mask((L, 27), L)
+    mod = jlayers.BertLayer(jc)
+    params = randomize(jinit(mod, x, mask), rng)
+    want = japply(mod, params, x, mask)
+    layer = tlayers.BertLayer(tc)
+    layer.load_state_dict(jax_import.bert_block_state_dict(params["params"]))
+    _close(layer(_t(x), _t(mask)), want)
+    gelu = tlayers.BertLayer(model_cfgs()[1])
+    gelu.load_state_dict(layer.state_dict())
+    assert (gelu(_t(x), _t(mask)) - layer(_t(x), _t(mask))).abs().max() > 1e-3
+    assert set(tlayers.ACT2FN) == set(jlayers.ACT2FN)
+
+
+def test_fcmf_use_mde_is_refused_only_where_jax_builds_it(rng):
+    """JAX builds the MDE only when `use_mde and alpha < 1`; with alpha >= 1
+    the flag changes nothing, and the port runs and matches."""
+    jm, tm = model_cfgs()
+    jt, tt = text_cfgs()
+    kw = dict(num_imgs=2, num_roi=2, num_patches=4, visual_feat_dim=64,
+              max_text_len=L, box_heads=8, use_mde=True, alpha=1.0)
+    model = JFCMF(jcfg.FCMFConfig(model=jm, text=jt, **kw))
+    ids = rng.integers(2, VOCAB, size=(2, L)).astype(np.int32)
+    grid = rng.normal(size=(2, 2, 4, 64)).astype(np.float32)
+    roi = rng.normal(size=(2, 2, 2, 64)).astype(np.float32)
+    coors = rng.uniform(size=(2, 2, 2, 4)).astype(np.float32)
+    attn, added = np.ones_like(ids), np.ones((2, L + 4), np.int32)
+    params = randomize(jinit(model, ids, grid, roi, coors, None, attn, added)["params"], rng)
+    want = japply(model, {"params": params}, ids, grid, roi, coors, None, attn, added)
+    port = TFCMF(tcfg.FCMFConfig(model=tm, text=tt, **kw))
+    port.load_state_dict(jax_import.fcmf_state_dict_from_jax(params, 2), strict=True)
+    port.eval()
+    _close(port(_t(ids), _t(grid), _t(roi), _t(coors), None, _t(attn), _t(added)), want)
+    with pytest.raises(NotImplementedError, match="Denoising"):
+        TFCMF(tcfg.FCMFConfig(model=tm, text=tt, **{**kw, "alpha": 0.7}))

@@ -114,7 +114,7 @@ def test_decay_and_head_groups_match_jax_masks(fcmf_params):
                                                                   optax.MaskedNode)}
     assert want_head and want_decay and want_head != set(paths)
 
-    opt = optim.AdamW(port.named_parameters(), 1e-3, head_learning_rate=1e-2)
+    opt = optim.AdamW(port, 1e-3, head_learning_rate=1e-2)
     names = {id(p): n for n, p in port.named_parameters()}
     got_decay, got_head = set(), set()
     for group in opt.optimizer.param_groups:
@@ -125,6 +125,73 @@ def test_decay_and_head_groups_match_jax_masks(fcmf_params):
             got_head |= group_names
     assert got_decay == want_decay
     assert got_head == want_head
+
+
+class _DecoderLike(torch.nn.Module):
+    """Parameter names the Phase-1 decoder will bring (`addnorm1.ln`, an
+    `out_bias`) and a trainable BatchNorm, none of which is called
+    `LayerNorm`."""
+
+    def __init__(self):
+        super().__init__()
+        from macsa_tpu_torch.models.layers import Dense, LayerNormTF
+        self.addnorm1 = torch.nn.ModuleDict({"ln": LayerNormTF(8)})
+        self.add_norm3 = torch.nn.ModuleDict({"ln": LayerNormTF(8)})
+        self.dense = Dense(8, 8)
+        self.bn1 = torch.nn.Module()
+        self.bn1.weight = torch.nn.Parameter(torch.ones(8))   # not a norm module: decays
+        self.out_bias = torch.nn.Parameter(torch.zeros(8))
+        torch.nn.init.normal_(self.dense.weight)
+        torch.nn.init.zeros_(self.dense.bias)
+
+
+def test_no_decay_is_decided_by_module_type_as_jax_decides_by_leaf_name():
+    """JAX exempts every leaf named `bias`, `out_bias` or `scale`; the port
+    every bias and the weight of every normalization module, whatever the
+    module is called (the decoder's LayerNorm is `ln`)."""
+    z = np.zeros(8, np.float32)
+    ln = {"scale": z, "bias": z}
+    params = {"addnorm1": {"ln": ln}, "add_norm3": {"ln": ln},
+              "dense": {"kernel": np.zeros((8, 8), np.float32), "bias": z},
+              "bn1": {"kernel": z}, "out_bias": z}
+    rename = {"scale": "weight", "kernel": "weight"}
+    want_decay = {".".join(rename.get(k, k) for k in path)
+                  for path, decays in _leaves(joptim._decay_mask(params)).items() if decays}
+    assert want_decay == {"dense.weight", "bn1.weight"}
+    module = _DecoderLike()
+    assert {n for n, _ in module.named_parameters()} - optim.no_decay_names(module) == want_decay
+    opt = optim.AdamW(module, 1e-3)
+    names = {id(p): n for n, p in module.named_parameters()}
+    got_decay = {names[id(p)] for group in opt.optimizer.param_groups
+                 if group["weight_decay"] > 0 for p in group["params"]}
+    assert got_decay == want_decay
+    # a frozen FrozenBatchNorm keeps buffers; its weight as a parameter takes no decay
+    from macsa_tpu_torch.models.resnet import FrozenBatchNorm
+    bn = FrozenBatchNorm(4, compute_dtype=torch.float32)
+    weight = bn.weight
+    del bn._buffers["weight"]
+    bn.weight = torch.nn.Parameter(weight.clone())
+    assert optim.no_decay_names(torch.nn.ModuleDict({"bn2": bn})) == {"bn2.weight"}
+
+
+def test_adamw_leaves_frozen_prefixes_out(fcmf_params):
+    """An encoder frozen through `requires_grad_(False)` (what
+    `--freeze_encoder` does) is neither updated nor decayed, and gradients
+    left on it do not count in the clipping norm."""
+    params, grads = fcmf_params
+    port = _port(params)
+    before = {n: p.detach().clone() for n, p in port.named_parameters()}
+    port.encoder.requires_grad_(False)
+    opt = optim.AdamW(port, 1e-2, weight_decay=0.5)
+    _set_grads(port, grads[0])
+    head_norm = torch.sqrt(sum((p.grad ** 2).sum() for n, p in port.named_parameters()
+                               if not n.startswith("encoder.")))
+    opt.step()
+    for n, p in port.named_parameters():
+        assert torch.equal(p.detach(), before[n]) == n.startswith("encoder."), n
+    clipped = port.classifier.weight.grad  # scaled in place by 1 / ||head grads||
+    want = jax_import.fcmf_state_dict_from_jax(grads[0], 2)["classifier.weight"] / head_norm
+    assert torch.allclose(clipped, want, rtol=1e-5, atol=1e-7)
 
 
 def test_adamw_matches_optax(fcmf_params):
@@ -139,7 +206,7 @@ def test_adamw_matches_optax(fcmf_params):
     tx = joptim.make_adamw(joptim.linear_warmup_schedule(**enc), weight_decay=0.1,
                            head_learning_rate=joptim.linear_warmup_schedule(**head))
     port = _port(params)
-    opt = optim.AdamW(port.named_parameters(), optim.linear_warmup_schedule(**enc),
+    opt = optim.AdamW(port, optim.linear_warmup_schedule(**enc),
                       weight_decay=0.1, head_learning_rate=optim.linear_warmup_schedule(**head))
     after = _run_both(params, grads, tx, port, opt)
     assert opt.updates == ROUNDS
@@ -153,7 +220,7 @@ def test_adamw_accumulation_matches_optax_multisteps(fcmf_params):
     tx = joptim.make_adamw(joptim.linear_warmup_schedule(**sched),
                            head_learning_rate=3e-2, accumulate_steps=2)
     port = _port(params)
-    opt = optim.AdamW(port.named_parameters(), optim.linear_warmup_schedule(**sched),
+    opt = optim.AdamW(port, optim.linear_warmup_schedule(**sched),
                       head_learning_rate=3e-2, accumulate_steps=2)
     _run_both(params, grads, tx, port, opt)
     assert opt.updates == ROUNDS // 2  # the schedule counts updates, not micro-steps
@@ -183,7 +250,7 @@ def test_optimizers_update_parameters_without_gradients(fcmf_params):
     port = _port(params)
     pooler = port.encoder.bert.cell.pooler.dense.weight
     before = pooler.detach().clone()
-    opt = optim.AdamW(port.named_parameters(), 1e-2, weight_decay=0.5)
+    opt = optim.AdamW(port, 1e-2, weight_decay=0.5)
     port.classifier.weight.grad = torch.ones_like(port.classifier.weight)
     opt.step()
     assert torch.allclose(pooler.detach(), before * (1 - 1e-2 * 0.5), rtol=0, atol=1e-7)

@@ -37,7 +37,11 @@ SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attentio
                  "ops.box_attention", "ops.fused_resnet", "models.layers",
                  "models.text_encoder", "models.box_attention", "models.resnet",
                  "models.fused_backbone", "models.fcmf", "train.optim", "train.state",
-                 "train.steps", "train.jax_import")
+                 "train.steps", "train.jax_import", "native", "utils.logging",
+                 "data.text_preprocess", "data.png", "data.images", "data.tokenizer",
+                 "data.vimacsa", "data.loader", "data.synth", "train.metrics", "train.common",
+                 "train.feature_cache", "train.disk_feature_cache", "train.checkpoints",
+                 "train.finetune")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
@@ -111,7 +115,7 @@ def test_port_imports_no_jax():
     code = ("import sys\nimport macsa_tpu_torch\n"
             + "".join(f"import macsa_tpu_torch.{m}\n" for m in SLICE_MODULES)
             + "bad = sorted(m for m in sys.modules\n"
-              "             if m.split('.')[0] in ('jax', 'flax', 'macsa_tpu'))\n"
+              "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax', 'macsa_tpu'))\n"
               "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)

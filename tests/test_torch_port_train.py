@@ -216,7 +216,7 @@ def test_train_step_adamw_losses_match_jax(pair):
                            **kw)
     _, want = _jax_run(pair, tx, 3)
     port = _port_model(params, **NO_DROPOUT)
-    opt = optim.AdamW(port.named_parameters(), optim.linear_warmup_schedule(1e-3, 1, 100),
+    opt = optim.AdamW(port, optim.linear_warmup_schedule(1e-3, 1, 100),
                       head_learning_rate=optim.linear_warmup_schedule(1e-2, 1, 100), **kw)
     step = make_finetune_train_step(TrainState.create(port, pair[5], opt))
     got = [float(step(tbatch, seed=0)["loss"]) for _ in range(3)]
@@ -229,7 +229,7 @@ def test_train_step_with_dropout_is_seeded_and_learns(pair):
 
     def run(seed, steps):
         port = _port_model(params)  # dropout 0.1 everywhere, the reference rates
-        opt = optim.AdamW(port.named_parameters(), optim.linear_warmup_schedule(1e-3, 2, 100),
+        opt = optim.AdamW(port, optim.linear_warmup_schedule(1e-3, 2, 100),
                           head_learning_rate=optim.linear_warmup_schedule(1e-2, 2, 100))
         step = make_finetune_train_step(TrainState.create(port, pair[5], opt))
         return [float(step(tbatch, seed)["loss"]) for _ in range(steps)]
@@ -274,7 +274,7 @@ def test_eval_step_runs_in_eval_mode_and_restores_it(pair):
     port.encoder.register_forward_pre_hook(lambda m, args: seen.append(m.training))
     eval_step = make_finetune_eval_step(port, pair[5])
     _, before = eval_step(pair[6])
-    opt = optim.AdamW(port.named_parameters(), 1e-3)
+    opt = optim.AdamW(port, 1e-3)
     make_finetune_train_step(TrainState.create(port, pair[5], opt))(pair[6], seed=0)
     assert port.training  # the train step leaves the model in training mode
     port.load_state_dict(snapshot)
