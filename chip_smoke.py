@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one CUDA card: serving path, train step, fine-tune driver.
+"""Drive the PyTorch port on one CUDA card: serving path, train steps of both
+phases, decode, and the two drivers from files (Phase 1, then Phase 2 on its encoder).
 
     python3 chip_smoke.py
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit (`nvcc`).  It builds the port's kernels from `macsa_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the shapes of the
-paths below (K2; K1's forward and backward with dropout on and off, bf16
-on its tensor-core variant and f32 on its CUDA-core variant; K3,
+paths below (K2 at both phases' batches; K1's forward and backward with
+dropout on and off, bf16 on its tensor-core variant and f32 on its
+CUDA-core variant, also at Phase 1's batches and its eval's; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
 whole identity bottleneck, at all four stages; in bf16 both must run their
@@ -34,6 +36,18 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
   epochs), checks its artifacts, that the second epoch ran on cached
   features (no K2 launch, 12 K1 forward and backward launches a step), and
   that a second call resumes from `last` for exactly one more epoch,
+* runs the Phase-1 seq2seq model (FCMF encoder + 12 decoder blocks, tied
+  vocabulary table of 15004 rows, T = 20) at batch 16: one step's loss and
+  gradients through the kernels against the plain path at dropout 0 in
+  f32, the chunked loss against the full one, then timed steps of
+  `make_pretrain_train_step` in f32 and bf16 on cached features and cold,
+* decodes greedily and with beam 3 (20 steps): the kernel path's tokens
+  against the plain path's, greedy against beam 1, the incremental logits
+  against teacher forcing; the bf16 calls timed,
+* runs the Phase-1 driver from the synthetic files (`train/pretrain.main`,
+  2 epochs with the generation eval, then a resume), and the fine-tune
+  driver on its output (`--pretrained_iaog_path`, a shared
+  `--feature_cache_dir`): the two-phase pipeline end to end,
 * and, after the last timed step (so that no timing has the profiler in
   its process), breaks two bf16 train steps' device time down by kernel
   and reads the device time of K1's and SDPA's backward,
@@ -62,6 +76,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 3, 10
 PROFILE_STEPS, PROFILE_ROWS = 2, 24  # the bf16 train step's device-time breakdown
 STAGE3_IMAGES = BATCH * (7 + 28)  # one serving batch: 8 x (7 images + 28 ROI crops)
+P1_BATCH, P1_STEPS = 16, 3  # Phase 1: the driver's batch; timed steps in one reading
+P1_READINGS = {"float32": 1, "bfloat16": 3}  # readings of each feed (bf16 is the default path)
 
 
 # (h = w, C, F) of the identity bottlenecks of ResNet-152's four stages at 224^2
@@ -126,13 +142,17 @@ def graph_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(end) / (per_graph * replays)
 
 
-def device_profile(fn, iters: int, warmup: int) -> list:
+def device_profile(fn, iters: int, warmup: int, host_too: bool = True) -> list:
     """(device microseconds, calls, name) of every kernel that `iters` calls
-    of `fn` run on the card, from `torch.profiler`, largest first."""
+    of `fn` run on the card, from `torch.profiler`, largest first.  Without
+    `host_too` only the card's activity is recorded: for calls of tens of
+    thousands of tiny operators, whose host events cost more than the call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host_too:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(iters):
             fn()
@@ -166,6 +186,38 @@ def f32_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
     """Every element of `got` within one float32 ulp of `want`."""
     ulp = torch.nextafter(want.abs(), torch.tensor(float("inf"), device=want.device)) - want.abs()
     return bool(((got - want).abs() <= ulp).all())
+
+
+def phase_k2_phase1_shapes(dev, image_prep) -> float:
+    """K2 against its plain version on the packed batches Phase 1 sends it
+    (batch 16: the train step, the driver's cold epoch, the eval decode),
+    both dtypes, with invalid frames: f32 within one ulp, bf16 equal, as
+    phase k2.  Not timed.  -> worst absolute error."""
+    g = torch.Generator(dev).manual_seed(1)
+    worst = 0.0
+    for lead in ((P1_BATCH, 7), (P1_BATCH, 7, 4)):
+        pixels = torch.randint(0, 256, lead + (224, 224, 3), dtype=torch.uint8, device=dev,
+                               generator=g)
+        valid = torch.rand(lead, device=dev, generator=g) > 0.25
+        valid[(0,) * len(lead)], valid[(-1,) * len(lead)] = True, False
+        x = torch.cat([valid.to(torch.int32)[..., None],
+                       pixels.reshape(lead + (-1,)).view(torch.int32)], dim=-1).contiguous()
+        assert x.shape == lead + (37633,)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = image_prep.unpack_normalize_pixels(x, dtype)
+            want = image_prep.unpack_normalize_pixels_reference(x, dtype)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            ok = f32_ulp_ok(got, want) if dtype == torch.float32 else torch.equal(got, want)
+            if not ok or got[~valid].abs().max().item() != 0.0:
+                raise AssertionError(f"K2 {tuple(x.shape)} {dtype}: kernel disagrees with plain "
+                                     f"(max abs err {err}), or an invalid frame is not zeros")
+            worst = max(worst, err)
+            print(f"phase k2 packed {str(dtype)[6:]} Phase-1 shape {tuple(x.shape)}, "
+                  f"{int((~valid).sum())} invalid frames: max_abs_err={err:.3g} (f32 <= 1 ulp, "
+                  f"bf16 equal)")
+        del pixels, x, got, want
+    return worst
 
 
 def phase_k2(dev, image_prep):
@@ -416,6 +468,78 @@ def phase_k1_bwd_device(k1_bwd) -> None:
               f"twice (within 10%: {'yes' if steady else 'NO'}): K1 backward {ours[0]:.4f} "
               f"{ours[1]:.4f}, SDPA backward {lib[0]:.4f} {lib[1]:.4f}; library_ms="
               f"{entry['library_ms']:.4f}, kernel_ms={entry['ms']:.4f} (CUDA events)")
+
+
+def phase_k1_phase1_shapes(dev, cuda_lib, fa) -> dict:
+    """K1's forward and backward against their plain versions at the
+    shapes Phase 1 gives them: [16, 170, 768] (the train step, the eval
+    decode) and [2, 170, 768] (the driver's debug decode), rate 0.1, with
+    the tolerances of phases k1 and k1_bwd; and the forward alone at
+    [16, 64, 768] and [5, 64, 768], the generation eval's BERTScore batches
+    (64 tokens, short texts, a ragged last batch).  -> worst absolute errors."""
+    h, d, seed = 12, 64, 7
+    fwd_tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of max|ref|
+    worst = {"out": 0.0, "grad": 0.0}
+    for b, l, backward in ((P1_BATCH, 170, True), (2, 170, True), (P1_BATCH, 64, False),
+                           (5, 64, False)):
+        g = torch.Generator(dev).manual_seed(17 + b + l)
+        lens = torch.randint(24 if backward else 2, l + 1, (b,), device=dev, generator=g)
+        lens[0] = l
+        mask = torch.zeros(b, l, device=dev).masked_fill(
+            torch.arange(l, device=dev)[None, :] >= lens[:, None], torch.finfo(torch.float32).min)
+        q, k, v, gout = (torch.randn(b, l, h * d, device=dev, generator=g) for _ in range(4))
+        for dtype in (torch.float32, torch.bfloat16):
+            qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, gout))
+            variant = K1_VARIANT[dtype]
+            cuda_lib.reset_launch_counts()
+            got0 = fa.fused_self_attention(qc, kc, vc, mask, h)
+            expect_counts(cuda_lib, {"fused_self_attention": 1,
+                                     f"fused_self_attention.{variant}": 1},
+                          f"K1 forward [{b},{l},{h * d}] {dtype}")
+            want0 = fa.attention_reference(qc, kc, vc, mask, h)
+            err0 = (got0.float() - want0.float()).abs().max().item()
+            if not err0 <= fwd_tol[dtype]:
+                raise AssertionError(f"K1 [{b},{l},{h * d}] {dtype}: max abs err {err0} > "
+                                     f"{fwd_tol[dtype]}")
+            worst["out"] = max(worst["out"], err0)
+            if not backward:
+                print(f"phase k1 {str(dtype)[6:]} ({variant}) BERTScore shape [{b},{l},{h * d}] "
+                      f"h={h} mask finfo.min, {int(lens.min())}-{int(lens.max())} tokens a row: "
+                      f"forward max_abs_err={err0:.3g} (atol {fwd_tol[dtype]})")
+                continue
+            leaves = [x.clone().requires_grad_(True) for x in (qc, kc, vc)]
+            cuda_lib.reset_launch_counts()
+            out = fa.fused_self_attention(*leaves, mask, h, 0.1, seed)
+            grads = torch.autograd.grad(out, leaves, gc)
+            expect_counts(cuda_lib, {"fused_self_attention": 1,
+                                     f"fused_self_attention.{variant}": 1,
+                                     "fused_self_attention_bwd": 1,
+                                     f"fused_self_attention_bwd.{variant}": 1},
+                          f"K1 [{b},{l},{h * d}] {dtype}")
+            wants = (fa.attention_reference(qc, kc, vc, mask, h, 0.1, seed),
+                     *fa.attention_backward_reference(qc, kc, vc, mask, gc, h, 0.1, seed))
+            rels = {}
+            for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), wants):
+                err = (got.float() - want.float()).abs().max().item()
+                rels[name] = err / want.float().abs().max().item()
+                if not rels[name] <= bwd_tol[dtype]:
+                    raise AssertionError(f"K1 {name} [{b},{l},{h * d}] {dtype}: error "
+                                         f"{rels[name]} of max|ref| > {bwd_tol[dtype]}")
+                key = "out" if name == "out" else "grad"
+                worst[key] = max(worst[key], err)
+            ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h, 0.1, seed),
+                         iters=50)
+            lse = fa._launch_fwd(qc, kc, vc, mask, h, 0.1, seed, with_lse=True)[1]
+            bwd_ms = cuda_ms(functools.partial(fa._launch_bwd, qc, kc, vc, mask, lse, gc, h, 0.1,
+                                               seed), iters=50)
+            print(f"phase k1 {str(dtype)[6:]} ({variant}) Phase-1 shape [{b},{l},{h * d}] h={h} "
+                  f"mask finfo.min: rate 0 max_abs_err={err0:.3g} (atol {fwd_tol[dtype]}); rate "
+                  f"0.1 rel_err " + " ".join(f"{n}={e:.3g}" for n, e in rels.items())
+                  + f" (tol {bwd_tol[dtype]} of max|ref|); fwd kernel_ms={ms:.4f} bwd "
+                  f"kernel_ms={bwd_ms:.4f}")
+    cuda_lib.reset_launch_counts()
+    return worst
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -922,33 +1046,15 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     loss_err = abs(loss_k.item() - loss_p.item())
     if not loss_err <= 1e-5:
         raise AssertionError(f"train loss kernels {loss_k.item()} vs plain {loss_p.item()}")
-    # f32 with TF32 off: summation order through 12+3 layers and their
-    # backward.  Each parameter within 1e-3 of its largest gradient, plus
-    # 1e-6 of the largest gradient of the model: the key biases' exact
-    # gradient is 0 (softmax is shift-invariant), so theirs is rounding
-    # noise of the gradients around them on both paths
-    plain_grads = dict(plain.named_parameters())
-    scale = max(p.grad.abs().max().item() for p in plain_grads.values()
-                if p.grad is not None)
-    worst = ("", 0.0)
-    for name, p in model.named_parameters():
-        gp = plain_grads[name].grad
-        if p.grad is None or gp is None:
-            if (p.grad is None) != (gp is None):
-                raise AssertionError(f"{name}: a gradient on one path only")
-            continue
-        tol = 1e-3 * gp.abs().max().item() + 1e-6 * scale
-        ratio = (p.grad - gp).abs().max().item() / tol
-        worst = max(worst, (name, ratio), key=lambda t: t[1])
-    if not worst[1] <= 1.0:
-        raise AssertionError(f"train gradients kernels vs plain: {worst[0]} at {worst[1]} "
-                             f"of its tolerance")
+    # f32 with TF32 off: summation order through 12+3 layers and their backward
+    worst = grad_gap(model, plain, "train gradients kernels vs plain", 1e-3)
+    scale = worst[2]
     print(f"phase train grad check f32 dropout 0 (K1, K3 and their backward): loss "
           f"{loss_k.item():.6f} kernels vs "
           f"plain {loss_p.item():.6f} (|diff| {loss_err:.3g}, tol 1e-5); every gradient "
           f"within 1e-3 of its max + 1e-6 of the largest ({scale:.3g}); worst {worst[0]} "
           f"at {worst[1]:.3g} of its tolerance")
-    del plain, plain_batch, loss_k, loss_p, plain_grads
+    del plain, plain_batch, loss_k, loss_p
     model.zero_grad(set_to_none=True)
 
     def trainer(dtype: str):
@@ -1024,7 +1130,8 @@ def phase_finetune(card, cuda_lib, synth, finetune):
     written to a temporary directory, `finetune.main` with its defaults
     (ResNet-152, L = 170, 7 images, 4 ROIs, batch 8, bf16, the card) for
     two epochs with eval and test, then a second `main` that resumes from
-    `last` for one more epoch."""
+    `last` for one more epoch.  (The steps' device time is phase train's to
+    read; the driver's `--profile_dir` is not driven here.)"""
     n_train, n_dev, n_test, epochs, log_every = 64, 16, 16, 2, 4
     layers_per_pass = 12
     with tempfile.TemporaryDirectory() as tmp:
@@ -1096,36 +1203,497 @@ def phase_finetune(card, cuda_lib, synth, finetune):
         print(f"phase finetune resume from last: epoch {more[0]['epoch']} only, from step "
               f"{more[0]['first_step']}, {more[0]['steps']} steps, losses "
               + " ".join(f"{x:.4f}" for x in more[0]["losses"]))
+    return launches
 
-        # what the steps cost the card alone: two more epochs (a cold and a
-        # warm one: a new process state starts with empty caches) under
-        # torch.profiler, after every wall time above was taken
-        profiled = finetune.main(argv + ["--num_train_epochs", str(epochs + 3),
-                                         "--resume_from_checkpoint", "last", "--profile_dir",
-                                         os.path.join(tmp, "traces")])["epochs"]
-        if [ep["epoch"] for ep in profiled] != [epochs + 1, epochs + 2] or \
-                len(os.listdir(os.path.join(tmp, "traces"))) != 2:
-            raise AssertionError(f"finetune profiled epochs: {profiled}")
-        for name, ep in zip(("cold", "warm"), profiled):
-            if not ep["device_kernel_ms_per_step"]:
-                raise AssertionError(f"finetune: the profiler saw no device time: {ep}")
-            print(f"phase finetune {name} epoch under torch.profiler: "
-                  f"{ep['device_kernel_ms_per_step']:.2f} ms/step of device time (kernels and "
-                  f"copies alone) beside {ep['seconds'] * 1e3 / ep['steps']:.2f} ms/step wall "
-                  f"with the profiler on; launches {ep['kernel_launches']}")
+
+def spread(xs) -> str:
+    """median (min-max) of repeated readings."""
+    xs = sorted(xs)
+    return f"{xs[len(xs) // 2]:.2f} ({xs[0]:.2f}-{xs[-1]:.2f})"
+
+
+def pretrain_batch(dev, cfg, dec_cfg, with_pixels: bool = True):
+    """Loader-shaped IAOG batch of 16 samples, made on the card from a seed."""
+    g = torch.Generator(dev).manual_seed(21)
+    b, l, t = P1_BATCH, cfg.max_text_len, dec_cfg.max_decode_len
+
+    def frames(lead, p_valid):
+        pixels = torch.randint(0, 256, lead + (224 * 224 * 3,), dtype=torch.uint8, device=dev,
+                               generator=g)
+        valid = torch.rand(lead, device=dev, generator=g) < p_valid
+        return torch.cat([valid.to(torch.int32)[..., None], pixels.view(torch.int32)], -1)
+
+    lens = torch.randint(24, l + 1, (b,), device=dev, generator=g)
+    pad = torch.arange(l, device=dev) >= lens[:, None]
+    ids = torch.randint(3, dec_cfg.vocab_size, (b, l), device=dev, generator=g)
+    dec_lens = torch.randint(4, t + 1, (b,), device=dev, generator=g)
+    dec_pad = torch.arange(t, device=dev) >= dec_lens[:, None]
+    dec_ids = torch.randint(3, dec_cfg.vocab_size, (b, t), device=dev, generator=g)
+    dec_ids = dec_ids.masked_fill(dec_pad, cfg.text.pad_token_id)
+    labels = torch.roll(dec_ids, -1, dims=1)
+    labels[:, -1] = -100
+    labels = labels.masked_fill(labels == cfg.text.pad_token_id, -100)
+    batch = {
+        "enc_input_ids": ids.masked_fill(pad, cfg.text.pad_token_id).to(torch.int32),
+        "token_type_ids": torch.zeros(b, l, dtype=torch.int32, device=dev),
+        "attention_mask": (~pad).to(torch.int32),
+        "added_mask": torch.ones(b, l + cfg.num_patches, dtype=torch.int32, device=dev),
+        "dec_input_ids": dec_ids.to(torch.int32), "labels": labels.to(torch.int32),
+        "roi_coors": torch.rand(b, cfg.num_imgs, cfg.num_roi, 4, device=dev, generator=g)}
+    if with_pixels:
+        batch["images"] = frames((b, cfg.num_imgs), 0.9)
+        batch["roi_images"] = frames((b, cfg.num_imgs, cfg.num_roi), 0.75)
+    return batch
+
+
+def build_seq2seq(dev, config, seq2seq, resnet, dtype: str, fused: bool, dropout: float):
+    kw = dict(dtype=dtype, fused_attention=fused, hidden_dropout_prob=dropout,
+              attention_probs_dropout_prob=dropout)
+    cfg = config.FCMFConfig(model=config.ModelConfig(**kw), text=config.TextEncoderConfig(**kw))
+    dec_cfg = config.DecoderConfig(dtype=dtype, dropout=dropout)
+    return (cfg, dec_cfg, seq2seq.FCMFSeq2Seq(cfg, dec_cfg, device=dev),
+            resnet.VisualFeatures(config.ResNetConfig(dtype=dtype), device=dev))
+
+
+def grad_gap(model, plain, what: str, rel: float) -> tuple:
+    """Every gradient of `model` within `rel` of its parameter's largest in
+    `plain`, plus 1e-6 of the largest gradient of the model (the attention
+    key biases' exact gradient is 0: theirs is rounding noise).
+    -> (worst parameter, its share of its tolerance, the largest gradient)."""
+    plain_grads = dict(plain.named_parameters())
+    scale = max(p.grad.abs().max().item() for p in plain_grads.values() if p.grad is not None)
+    worst = ("", 0.0)
+    for name, p in model.named_parameters():
+        gp = plain_grads[name].grad
+        if p.grad is None or gp is None:
+            if (p.grad is None) != (gp is None):
+                raise AssertionError(f"{what}: {name}: a gradient on one path only")
+            continue
+        tol = rel * gp.abs().max().item() + 1e-6 * scale
+        worst = max(worst, (name, (p.grad - gp).abs().max().item() / tol), key=lambda t: t[1])
+    if not worst[1] <= 1.0:
+        raise AssertionError(f"{what}: {worst[0]} at {worst[1]} of its tolerance")
+    return worst[0], worst[1], scale
+
+
+def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, steps, image_prep,
+                        optim, train_state):
+    """The Phase-1 train step at full width, batch 16: a gradient check at
+    dropout 0 in f32 (kernels vs plain path; chunked vs full loss), then
+    timed steps in f32 and bf16 on cached features and cold, and after the
+    last timed one a `torch.profiler` breakdown of the bf16 steps."""
+    build = functools.partial(build_seq2seq, dev, config, seq2seq, resnet)
+    cfg, dec_cfg, model, visual = build("float32", True, 0.0)
+    layers.init_weights(model, torch.Generator(dev).manual_seed(22), cfg.model.initializer_range)
+    layers.init_weights(visual, torch.Generator(dev).manual_seed(23))
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = pretrain_batch(dev, cfg, dec_cfg)
+
+    # one step's loss and gradients at dropout 0: kernels against the plain
+    # path (attention without K1, pixels normalized by K2's plain version)
+    *_, plain, _ = build("float32", False, 0.0)
+    plain.load_state_dict(weights, strict=True)
+    plain_batch = dict(batch)
+    for key in ("images", "roi_images"):
+        plain_batch[key] = image_prep.unpack_normalize_pixels_reference(batch[key],
+                                                                        torch.float32)
+    model.train()
+    plain.train()
+    cuda_lib.reset_launch_counts()
+    loss_k, _ = steps.pretrain_loss(model, visual, batch)
+    loss_k.backward()
+    k1 = cfg.text.num_hidden_layers
+    expect_counts(cuda_lib, {"device_normalize": 2, "fused_self_attention": k1,
+                             "fused_self_attention.simt": k1, "fused_self_attention_bwd": k1,
+                             "fused_self_attention_bwd.simt": k1}, "pretrain grad check")
+    loss_p, _ = steps.pretrain_loss(plain, visual, plain_batch)
+    loss_p.backward()
+    torch.cuda.synchronize()
+    loss_err = abs(loss_k.item() - loss_p.item())
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"pretrain loss kernels {loss_k.item()} vs plain {loss_p.item()}")
+    name, ratio, scale = grad_gap(model, plain, "pretrain gradients kernels vs plain", 1e-3)
+    print(f"phase pretrain_step grad check f32 dropout 0 batch {P1_BATCH} (K1, K1's backward, "
+          f"K2): loss {loss_k.item():.6f} kernels vs plain {loss_p.item():.6f} (|diff| "
+          f"{loss_err:.3g}, tol 1e-5); every gradient within 1e-3 of its max + 1e-6 of the "
+          f"largest ({scale:.3g}); worst {name} at {ratio:.3g} of its tolerance")
+    # the chunked loss (two chunks of 8192 over 15004 rows) against the full
+    # logits, on the kernel path with the features both would extract
+    grid, roi = steps.visual_features(model, visual, batch)
+    cached = {k: v for k, v in batch.items() if k not in ("images", "roi_images")}
+    cached.update(grid=grid, roi=roi)
+    chunked = seq2seq.FCMFSeq2Seq(cfg, dec_cfg, device=dev)
+    chunked.load_state_dict(weights, strict=True)
+    chunked.train()
+    model.zero_grad(set_to_none=True)
+    loss_f, acc_f = steps.pretrain_loss(model, visual, cached)
+    loss_f.backward()
+    loss_c, acc_c = steps.pretrain_loss(chunked, visual, cached, vocab_chunk=8192)
+    loss_c.backward()
+    torch.cuda.synchronize()
+    chunk_err = abs(loss_c.item() - loss_f.item()) / abs(loss_f.item())
+    if not chunk_err <= 1e-5 or acc_f.item() != acc_c.item():
+        raise AssertionError(f"chunked loss {loss_c.item()} vs full {loss_f.item()}; accuracy "
+                             f"{acc_c.item()} vs {acc_f.item()}")
+    name, ratio, _ = grad_gap(chunked, model, "chunked vs full-logits gradients", 1e-5)
+    print(f"phase pretrain_step vocab_chunk 8192 vs 0 (f32, cached features): loss "
+          f"{loss_c.item():.6f} vs {loss_f.item():.6f} (rel diff {chunk_err:.3g}, tol 1e-5), "
+          f"token accuracy equal; every gradient within 1e-5 of its max + 1e-6 of the largest; "
+          f"worst {name} at {ratio:.3g} of its tolerance")
+    del plain, plain_batch, chunked, loss_k, loss_p, loss_f, loss_c
+    model.zero_grad(set_to_none=True)
+    del model
+    torch.cuda.empty_cache()
+
+    def trainer(dtype: str):
+        *_, m, v = build(dtype, True, 0.1)  # the reference's dropout rates
+        m.load_state_dict(weights, strict=True)
+        v.load_state_dict(visual.state_dict(), strict=True)
+        # pretrain.py's defaults: 5e-5, wd 1e-5, clip 1.0
+        opt = optim.AdamW(m, optim.linear_warmup_schedule(5e-5, 1, 1000), weight_decay=1e-5,
+                          max_grad_norm=1.0)
+        return m, v, steps.make_pretrain_train_step(train_state.TrainState.create(m, v, opt))
+
+    def timed(step, b, readings):
+        """`readings` readings of P1_STEPS steps each -> per-step wall,
+        host launch and CUDA-event times of each reading, and the losses."""
+        losses, wall, issued, events = [], [], [], []
+        for _ in range(readings):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(P1_STEPS):
+                losses.append(step(b, seed=0)["loss"])
+            end.record()
+            issued.append((time.perf_counter() - t0) * 1e3 / P1_STEPS)
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3 / P1_STEPS)
+            events.append(start.elapsed_time(end) / P1_STEPS)
+        return losses, wall, issued, events
+
+    # the main path: every count from 0, read right after
+    cuda_lib.reset_launch_counts()
+    results, keep = {}, None
+    for dtype in ("float32", "bfloat16"):
+        per_feed = 1 + P1_READINGS[dtype] * P1_STEPS
+        m, v, step = trainer(dtype)
+        feeds = {"cached": {**cached, "grid": grid.to(m.config.model.torch_dtype),
+                            "roi": roi.to(m.config.model.torch_dtype)}, "cold": batch}
+        all_losses = []
+        for feed, b in feeds.items():
+            before = dict(cuda_lib.launch_counts)
+            first = step(b, seed=0)["loss"]  # untimed: first launch of everything
+            losses, wall, issued, events = timed(step, b, P1_READINGS[dtype])
+            all_losses += [first] + losses
+            got = {k: n - before.get(k, 0) for k, n in cuda_lib.launch_counts.items()
+                   if n != before.get(k, 0)}
+            variant = K1_VARIANT[m.config.model.torch_dtype]
+            want = {} if feed == "cached" else {"device_normalize": 2 * per_feed}
+            for name in ("fused_self_attention", "fused_self_attention_bwd"):
+                want.update({name: k1 * per_feed, f"{name}.{variant}": k1 * per_feed})
+            if got != want:
+                raise AssertionError(f"pretrain_step {dtype} {feed}: launches {got} != {want}")
+            results[(dtype, feed)] = (wall, issued, events)
+        all_losses = [x.item() for x in all_losses]
+        # one batch with dropout on: single steps go up as well as down, so
+        # the last three are held against the first (the rule of phase train)
+        if not all(math.isfinite(x) for x in all_losses) or \
+                not sum(all_losses[-3:]) / 3 < all_losses[0]:
+            raise AssertionError(f"pretrain_step {dtype}: losses {all_losses} not finite and "
+                                 f"falling")
+        results[dtype] = all_losses
+        if dtype == "bfloat16":
+            keep = (step, feeds)
+        else:
+            del m, v, step, feeds
+            torch.cuda.empty_cache()
+    launches = dict(cuda_lib.launch_counts)
+    for dtype in ("float32", "bfloat16"):
+        for feed in ("cached", "cold"):
+            wall, issued, events = results[(dtype, feed)]
+            print(f"phase pretrain_step {dtype} {feed} features, batch {P1_BATCH}, dropout 0.1: "
+                  f"wall {spread(wall)} ms/step, "
+                  f"{P1_BATCH * 1e3 / sorted(wall)[len(wall) // 2]:.1f} "
+                  f"samples/s; the host issued a step in {spread(issued)} ms; between CUDA "
+                  f"events {spread(events)} ms/step (median (min-max) of {len(wall)} "
+                  f"reading(s) of {P1_STEPS} steps after one untimed) on {card}")
+        print(f"phase pretrain_step {dtype} losses over {len(results[dtype])} steps on one "
+              f"batch: " + " ".join(f"{x:.4f}" for x in results[dtype]))
+    n_steps = sum(len(results[dtype]) for dtype in ("float32", "bfloat16"))
+    print(f"phase pretrain_step launches over {n_steps} steps: {launches} (a step: 12 K1 "
+          f"forward, 12 K1 backward (tensor-core variants in bf16, CUDA-core in f32), 2 K2 cold "
+          f"and 0 on cached features, 0 K3)")
+    # where the bf16 step's device time goes (after the counts were read)
+    step, feeds = keep
+    for feed, b in feeds.items():
+        rows = device_profile(lambda: step(b, seed=0), iters=PROFILE_STEPS, warmup=0,
+                              host_too=False)
+        total = sum(r[0] for r in rows)
+        print(f"phase pretrain_step bfloat16 {feed} profile: {total / 1e3 / PROFILE_STEPS:.2f} "
+              f"ms/step of device time in {sum(r[1] for r in rows) // PROFILE_STEPS} kernels a "
+              f"step (torch.profiler, {PROFILE_STEPS} steps); ms/step x calls/step, largest "
+              f"first:")
+        for rank, (us, calls, name) in enumerate(rows):
+            if rank < 14 or "attention_" in name:
+                print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  "
+                      f"{name[:100]}")
+    return launches
+
+
+def phase_decode(dev, card, cuda_lib, config, layers, seq2seq, resnet, steps):
+    """Greedy and beam-3 decode at full width, batch 16, 20 steps, on cached
+    features: the kernel path's tokens against the plain path's in f32,
+    greedy against beam 1, the incremental logits against teacher forcing on
+    the greedy tokens; then the bf16 calls (the drivers' default) timed:
+    wall around a synchronize, the kernels' device time from `torch.profiler`."""
+    build = functools.partial(build_seq2seq, dev, config, seq2seq, resnet)
+    cfg, dec_cfg, model32, visual = build("float32", True, 0.1)
+    # a wider table than the init's 0.02, so that the logits' leaders stand
+    # apart by more than the two paths' rounding (f32, no exact ties)
+    layers.init_weights(model32, torch.Generator(dev).manual_seed(24), 0.05)
+    layers.init_weights(visual, torch.Generator(dev).manual_seed(25))
+    *_, plain32, _ = build("float32", False, 0.1)
+    *_, model16, _ = build("bfloat16", True, 0.1)
+    for m in (plain32, model16):
+        m.load_state_dict(model32.state_dict(), strict=True)
+    batch = pretrain_batch(dev, cfg, dec_cfg)
+    with torch.inference_mode():
+        grid, roi = steps.extract_visual(visual, batch["images"], batch["roi_images"])
+    bos, eos, t = 0, 2, dec_cfg.max_decode_len
+    kw = dict(attention_mask=batch["attention_mask"], added_attention_mask=batch["added_mask"],
+              max_len=t)
+
+    def args(model, rows=slice(None)):
+        dt = model.config.model.torch_dtype
+        return (batch["enc_input_ids"][rows], grid[rows].to(dt), roi[rows].to(dt),
+                batch["roi_coors"][rows], bos, eos)
+
+    # the main path: every count from 0, read right after
+    cuda_lib.reset_launch_counts()
+    greedy = model32.greedy_decode(*args(model32), **kw)
+    beam, beam_scores = model32.beam_decode(*args(model32), beam_size=3, **kw)
+    one, _ = model32.beam_decode(*args(model32), beam_size=1, **kw)
+    greedy16 = model16.greedy_decode(*args(model16), **kw)
+    beam16, _ = model16.beam_decode(*args(model16), beam_size=3, **kw)
+    two = {k: v[:2] for k, v in kw.items() if k != "max_len"}
+    debug = model16.greedy_decode(*args(model16, slice(0, 2)), max_len=t, **two)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.launch_counts)
+    k1 = cfg.text.num_hidden_layers  # the encoder runs once a call, the decoder has no K1
+    want = {"fused_self_attention": 6 * k1, "fused_self_attention.simt": 3 * k1,
+            "fused_self_attention.wgmma": 3 * k1}
+    if launches != want:
+        raise AssertionError(f"decode launch counts {launches} != {want}")
+    greedy_p = plain32.greedy_decode(*args(plain32), **kw)
+    beam_p, beam_scores_p = plain32.beam_decode(*args(plain32), beam_size=3, **kw)
+    torch.cuda.synchronize()
+    if cuda_lib.launch_counts != launches:
+        raise AssertionError("the plain decode launched a kernel")
+    for name, got, ref in (("greedy", greedy, greedy_p), ("beam 3", beam, beam_p),
+                           ("beam 1 vs greedy", one, greedy)):
+        if got.shape != (P1_BATCH, t) or not torch.equal(got, ref):
+            raise AssertionError(f"decode {name}: tokens differ in "
+                                 f"{(got != ref).sum().item()} of {got.numel()} places")
+    score_err = (beam_scores - beam_scores_p).abs().max().item()
+    if not score_err <= 1e-3 or not torch.isfinite(beam_scores).all():
+        raise AssertionError(f"beam scores kernels vs plain: {score_err}")
+    for name, seqs in (("bf16 greedy", greedy16), ("bf16 beam", beam16), ("debug", debug)):
+        if seqs.shape[1] != t or seqs.min() < 0 or seqs.max() >= dec_cfg.vocab_size:
+            raise AssertionError(f"decode {name}: tokens {tuple(seqs.shape)} out of range")
+    # the incremental branch against teacher forcing, on the greedy tokens
+    with torch.inference_mode():
+        dec_in = torch.cat([torch.full((P1_BATCH, 1), bos, dtype=torch.int32, device=dev),
+                            greedy[:, :-1]], dim=1)
+        full = model32(batch["enc_input_ids"], dec_in, grid, roi, batch["roi_coors"], None,
+                       batch["attention_mask"], batch["added_mask"])
+        enc, mask = model32.encode(batch["enc_input_ids"], grid, roi, batch["roi_coors"], None,
+                                   batch["attention_mask"], batch["added_mask"])
+        cache = model32.decoder.init_cache(P1_BATCH, dev)
+        inc = torch.cat([model32.decode_step(dec_in[:, i:i + 1], enc, mask, cache, i)
+                         for i in range(t)], dim=1)
+    inc_err = (inc - full).abs().max().item()
+    live = ~(dec_in == eos).cumsum(1).bool()  # a row's steps up to its first eos
+    if not inc_err <= 1e-3 or not torch.equal(full.argmax(-1)[live], greedy[live].long()):
+        raise AssertionError(f"incremental vs teacher-forcing logits: max abs err {inc_err} "
+                             f"(atol 1e-3), or their argmax is not the greedy token")
+    distinct = len(torch.unique(greedy))
+    ended = (greedy == eos).any(1).float().mean().item()
+    print(f"phase decode f32 batch {P1_BATCH}, {t} steps: greedy and beam-3 tokens equal the "
+          f"plain path's, beam 1 equals greedy, beam scores within {score_err:.3g} (atol 1e-3); "
+          f"incremental vs teacher-forcing logits max_abs_err={inc_err:.3g} (atol 1e-3); "
+          f"{distinct} distinct tokens, {ended:.2f} of the rows reach eos")
+    print(f"phase decode launches over 6 calls (greedy, beam 3, beam 1 in f32; greedy, beam 3, "
+          f"a debug decode of 2 rows in bf16): {launches} (12 K1 a call: the encoder runs once)")
+
+    def wall_ms(fn):
+        fn()
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    calls = {("bfloat16", "greedy"): functools.partial(model16.greedy_decode, *args(model16),
+                                                       **kw),
+             ("bfloat16", "beam 3"): functools.partial(model16.beam_decode, *args(model16),
+                                                       beam_size=3, **kw)}
+    walls = {key: wall_ms(fn) for key, fn in calls.items()}
+    # the card's share, after every wall time was taken
+    for key, fn in calls.items():
+        rows = device_profile(fn, iters=1, warmup=0, host_too=False)
+        dev_ms, n = sum(r[0] for r in rows) / 1e3, sum(r[1] for r in rows)
+        mid = sorted(walls[key])[1]
+        print(f"phase decode {key[0]} {key[1]}: wall {spread(walls[key])} ms a call (median "
+              f"(min-max) of 3), {dev_ms:.2f} ms of device time in {n} kernels "
+              f"(torch.profiler, 1 call): the card is busy {dev_ms / mid:.2f} of a call, "
+              f"on {card}")
+        if key == ("bfloat16", "beam 3"):
+            print("phase decode bfloat16 beam 3 profile, ms/call x calls/call, largest first:")
+            for us, count, kernel in rows[:12]:
+                print(f"  {us / 1e3:8.3f} x{count:5d}  {kernel[:100]}")
+    return launches
+
+
+PRETRAIN_ARTIFACTS = ("best.pt", "last.pt", "train.log", "metrics.jsonl")
+
+
+def phase_pretrain(card, cuda_lib, synth, pretrain, finetune):
+    """The two-phase pipeline from files at full width: a synthetic dataset,
+    `pretrain.main` with its defaults (ResNet-152, L = 170, T = 20, 7
+    images, 4 ROIs, batch 16, bf16, the card) for two epochs with the
+    generation eval, a second `main` that resumes from `last` for one more,
+    then `finetune.main --pretrained_iaog_path <that output>` for one epoch
+    on the same `--feature_cache_dir`."""
+    n_train, n_dev, n_test, epochs, layers_per_pass, debug_every = 64, 16, 16, 2, 12, 4
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        synth.write_dataset(data, n_train=n_train, n_layers=layers_per_pass, image_size=256,
+                            seed=0, n_dev=n_dev, n_test=n_test)
+        out, features = os.path.join(tmp, "phase1"), os.path.join(tmp, "features")
+        argv = ["--pretrained_data_dir", os.path.join(data, "data"), "--image_dir",
+                os.path.join(data, "images"), "--output_dir", out, "--pretrained_hf_model",
+                os.path.join(data, "tok"), "--seed", "0", "--log_every", "4",
+                "--debug_decode_every", str(debug_every), "--feature_cache_dir", features,
+                "--do_train"]
+        # the main path: every count from 0, read right after
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = pretrain.main(argv + ["--do_eval", "--num_train_epochs", str(epochs)])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = dict(cuda_lib.launch_counts)
+        missing = [n for n in PRETRAIN_ARTIFACTS if not os.path.isfile(os.path.join(out, n))]
+        if missing:
+            raise AssertionError(f"pretrain: artifacts missing: {missing}")
+        cold, warm = result["epochs"]
+        n_steps = cold["steps"]
+        for name, ep in (("cold", cold), ("warm", warm)):
+            if ep["steps"] != n_steps or n_steps < 4 or not ep["losses"] or \
+                    not all(math.isfinite(x) for x in ep["losses"] + [ep["mean_loss"]]):
+                raise AssertionError(f"pretrain {name} epoch: {ep}")
+        if not warm["mean_loss"] < cold["mean_loss"] or \
+                result["best_train_loss"] != warm["mean_loss"]:
+            raise AssertionError(f"pretrain: mean loss {cold['mean_loss']} -> "
+                                 f"{warm['mean_loss']}, best {result['best_train_loss']}")
+        k1, debugs = layers_per_pass * n_steps, n_steps // debug_every
+        forward = k1 + layers_per_pass * debugs  # a debug decode runs the encoder once
+        want_warm = {"fused_self_attention": forward, "fused_self_attention.wgmma": forward,
+                     "fused_self_attention_bwd": k1, "fused_self_attention_bwd.wgmma": k1}
+        # a review's features are extracted by the first step that meets it
+        cold_k2 = cold["kernel_launches"].get("device_normalize", 0)
+        if {k: v for k, v in cold["kernel_launches"].items() if k != "device_normalize"} \
+                != want_warm or not 2 <= cold_k2 <= 2 * n_steps or cold_k2 % 2 or \
+                warm["kernel_launches"] != want_warm:
+            raise AssertionError(f"pretrain launches: cold {cold['kernel_launches']}, warm "
+                                 f"{warm['kernel_launches']} (want {want_warm}: no K2, every "
+                                 f"review's features were cached in the first epoch)")
+        gen = result["generation"]
+        if set(gen) != {"rouge1", "rougeL", "bertscore_f1"} or \
+                not all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in gen.values()):
+            raise AssertionError(f"pretrain generation eval: {gen}")
+        for name, ep in (("cold", cold), ("warm", warm)):
+            print(f"phase pretrain {name} epoch: {ep['samples'] / ep['seconds']:.2f} samples/s, "
+                  f"{ep['seconds'] * 1e3 / ep['steps']:.2f} ms/step wall ({debugs} debug "
+                  f"decodes of 2 rows and the epoch's one read of its losses included), the "
+                  f"host waited {ep['loader_wait_seconds'] / ep['seconds']:.3f} of the epoch "
+                  f"for decoded batches; {ep['steps']} steps of batch {P1_BATCH}, mean loss "
+                  f"{ep['mean_loss']:.4f}, launches {ep['kernel_launches']}, on {card}")
+        print(f"phase pretrain main: {main_s:.1f} s for {epochs} epochs + checkpoints + the "
+              f"generation eval (beam 3 over the dev samples, BERTScore on the model's own "
+              f"backbone): {gen}; launches {launches}")
+
+        resumed = pretrain.main(argv + ["--num_train_epochs", str(epochs + 1),
+                                        "--resume_from_checkpoint", "last"])
+        more = resumed["epochs"]
+        if len(more) != 1 or more[0]["epoch"] != epochs or \
+                more[0]["first_step"] != epochs * n_steps or more[0]["steps"] != n_steps or \
+                more[0]["kernel_launches"] != want_warm or \
+                not math.isfinite(more[0]["mean_loss"]):
+            # a new process state starts with an empty device cache and
+            # fills it from the disk cache: still no pixels, no K2
+            raise AssertionError(f"pretrain resume: {more}")
+        print(f"phase pretrain resume from last: epoch {more[0]['epoch']} only, from step "
+              f"{more[0]['first_step']}, {more[0]['steps']} steps on features prefilled from "
+              f"the disk cache (K2 0), {more[0]['samples'] / more[0]['seconds']:.2f} samples/s, "
+              f"mean loss {more[0]['mean_loss']:.4f}")
+
+        # Phase 2 on Phase 1's encoder and on its disk features
+        phase1 = torch.load(os.path.join(out, "best.pt"), map_location="cpu",
+                            weights_only=True)["model"]
+        taken = {}
+        ft_out = os.path.join(tmp, "phase2")
+        before = dict(cuda_lib.launch_counts)
+        ft = finetune.main(
+            ["--data_dir", os.path.join(data, "data"), "--image_dir",
+             os.path.join(data, "images"), "--output_dir", ft_out, "--pretrained_hf_model",
+             os.path.join(data, "tok"), "--seed", "0", "--log_every", "4", "--do_train",
+             "--num_train_epochs", "1", "--pretrained_iaog_path", out, "--feature_cache_dir",
+             features],
+            model_hook=lambda model, visual: taken.update(
+                {k: v.detach().cpu() for k, v in model.state_dict().items()}))
+        ft_launches = {k: v - before.get(k, 0) for k, v in cuda_lib.launch_counts.items()
+                       if v != before.get(k, 0)}
+        encoder = [k for k in taken if k.startswith("encoder.")]
+        wrong = [k for k in encoder if not torch.equal(taken[k], phase1[k])]
+        if wrong or len(encoder) < 200 or not torch.equal(
+                taken["encoder.bert.cell.embeddings.word_embeddings.weight"],
+                phase1["decoder.embedding.weight"]):
+            raise AssertionError(f"transfer: {len(wrong)} of {len(encoder)} encoder tensors "
+                                 f"differ from the Phase-1 checkpoint's: {wrong[:5]}")
+        with open(os.path.join(ft_out, "train.log")) as f:
+            log = f.read()
+        ep = ft["epochs"][0]
+        if "Transferring IAOG encoder from" not in log or \
+                f"prefilled {n_train}/{n_train} rows from disk" not in log or \
+                ft_launches.get("device_normalize", 0) != 0 or ep["steps"] != n_train // BATCH \
+                or not all(math.isfinite(x) for x in ep["losses"]):
+            raise AssertionError(f"phase 2 on phase 1: launches {ft_launches}, epoch {ep}")
+        print(f"phase pretrain -> finetune: {len(encoder)} encoder tensors and the token table "
+              f"equal the Phase-1 checkpoint's; all {n_train} train reviews' features prefilled "
+              f"from Phase 1's disk cache (K2 0); {ep['steps']} steps, "
+              f"{ep['samples'] / ep['seconds']:.2f} samples/s, losses "
+              + " ".join(f"{x:.4f}" for x in ep["losses"]) + f"; launches {ft_launches}")
+        for name, n in ft_launches.items():
+            launches[name] = launches.get(name, 0) + n
+        for name, n in more[0]["kernel_launches"].items():
+            launches[name] = launches.get(name, 0) + n
     return launches
 
 
 def main() -> int:
     sys.path.insert(0, REPO)
     from macsa_tpu_torch import config
-    from macsa_tpu_torch.models import fcmf, fused_backbone, layers, resnet
+    from macsa_tpu_torch.models import fcmf, fused_backbone, layers, resnet, seq2seq
     from macsa_tpu_torch.ops import box_attention as ba
     from macsa_tpu_torch.ops import cuda_lib, image_prep
     from macsa_tpu_torch.ops import fused_attention as fa
     from macsa_tpu_torch.ops import fused_resnet as fr
     from macsa_tpu_torch.data import synth
-    from macsa_tpu_torch.train import finetune, optim, steps
+    from macsa_tpu_torch.train import finetune, optim, pretrain, steps
     from macsa_tpu_torch.train import state as train_state
 
     if not torch.cuda.is_available():
@@ -1147,26 +1715,34 @@ def main() -> int:
     lib = cuda_lib.library()
     print(f"phase build: {time.perf_counter() - t0:.1f} s ({lib._name})")
 
-    k2 = phase_k2(dev, image_prep)
-    k1 = phase_k1(dev, cuda_lib, fa)
-    k1_bwd = phase_k1_bwd(dev, cuda_lib, fa)
-    k3 = phase_k3(dev, ba, cuda_lib)
-    k4, k4_launches = phase_k4(dev, cuda_lib, fr)
-    torch.cuda.empty_cache()
-    k5 = phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr)
-    torch.cuda.empty_cache()
-    launches = phase_slice(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
-                           image_prep)
-    torch.cuda.empty_cache()  # the serving models are gone
-    fused_launches, _ = phase_fused(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
-                                    image_prep, fused_backbone)
-    torch.cuda.empty_cache()
-    train_launches = phase_train(dev, smi, cuda_lib, config, layers, fcmf, resnet, steps,
-                                 image_prep, optim, train_state)
-    torch.cuda.empty_cache()
-    finetune_launches = phase_finetune(smi, cuda_lib, synth, finetune)
-    torch.cuda.empty_cache()
-    phase_k1_bwd_device(k1_bwd)
+    def run(phase, *args):
+        """One phase, with the seconds it took on a line of its own."""
+        t0 = time.perf_counter()
+        out = phase(*args)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the phase's models are gone
+        print(f"{phase.__name__.replace('_', ' ', 1)} took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    model_mods = (config, layers, fcmf, resnet, steps, image_prep)
+    k2 = run(phase_k2, dev, image_prep)
+    k2_phase1 = run(phase_k2_phase1_shapes, dev, image_prep)
+    k1 = run(phase_k1, dev, cuda_lib, fa)
+    k1_bwd = run(phase_k1_bwd, dev, cuda_lib, fa)
+    k1_phase1 = run(phase_k1_phase1_shapes, dev, cuda_lib, fa)
+    k3 = run(phase_k3, dev, ba, cuda_lib)
+    k4, k4_launches = run(phase_k4, dev, cuda_lib, fr)
+    k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
+    launches = run(phase_slice, dev, smi, cuda_lib, *model_mods)
+    fused_launches, _ = run(phase_fused, dev, smi, cuda_lib, *model_mods, fused_backbone)
+    train_launches = run(phase_train, dev, smi, cuda_lib, *model_mods, optim, train_state)
+    finetune_launches = run(phase_finetune, smi, cuda_lib, synth, finetune)
+    step_launches = run(phase_pretrain_step, dev, smi, cuda_lib, config, layers, seq2seq, resnet,
+                        steps, image_prep, optim, train_state)
+    decode_launches = run(phase_decode, dev, smi, cuda_lib, config, layers, seq2seq, resnet,
+                          steps)
+    pretrain_launches = run(phase_pretrain, smi, cuda_lib, synth, pretrain, finetune)
+    run(phase_k1_bwd_device, k1_bwd)
 
     def entry(name, source, replaces, launched, err, timed):
         """One kernel of the `kernels` line: its launches on the paths, its
@@ -1183,22 +1759,31 @@ def main() -> int:
 
     bf16 = torch.bfloat16
     k1_bwd0 = k1_bwd[("-10000", bf16, 0.0)]  # rate 0: the case SDPA's backward is timed at
-    k1_err = max([r["err"] for r in k1.values()] + [r["err"]["out"] for r in k1_bwd.values()])
-    k1b_err = max(max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values())
+    k1_err = max([r["err"] for r in k1.values()] + [r["err"]["out"] for r in k1_bwd.values()]
+                 + [k1_phase1["out"]])
+    k1b_err = max([max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values()]
+                  + [k1_phase1["grad"]])
+    phase1 = (step_launches, decode_launches, pretrain_launches)
+
+    def phase1_launches(name):
+        return sum(path.get(name, 0) for path in phase1)
     k4_conv1 = next(r for (name, dt), r in k4.items() if name.startswith("conv1") and dt == bf16)
     kernels = [
         entry("fused_self_attention", "fused_attention_wgmma.cu",
               "macsa_tpu/ops/fused_attention.py:92",
               launches["fused_self_attention"] + fused_launches["fused_self_attention"]
               + train_launches["fused_self_attention"]
-              + finetune_launches["fused_self_attention"], k1_err, k1[("-10000", bf16)]),
+              + finetune_launches["fused_self_attention"]
+              + phase1_launches("fused_self_attention"), k1_err, k1[("-10000", bf16)]),
         entry("fused_self_attention_bwd", "fused_attention_wgmma.cu",
               "macsa_tpu/ops/fused_attention.py:118", train_launches["fused_self_attention_bwd"]
-              + finetune_launches["fused_self_attention_bwd"], k1b_err, k1_bwd0),
+              + finetune_launches["fused_self_attention_bwd"]
+              + phase1_launches("fused_self_attention_bwd"), k1b_err, k1_bwd0),
         entry("device_normalize", "image_prep.cu", "macsa_tpu/ops/image_prep.py:36",
               launches["device_normalize"] + fused_launches["device_normalize"]
-              + train_launches["device_normalize"] + finetune_launches["device_normalize"],
-              max(r["err"] for r in k2.values()),
+              + train_launches["device_normalize"] + finetune_launches["device_normalize"]
+              + phase1_launches("device_normalize"),
+              max([r["err"] for r in k2.values()] + [k2_phase1]),
               k2[("packed_rois", bf16)]),
         entry("box_attention", "box_attention.cu", "macsa_tpu/ops/box_attention_kernel.py:37",
               fused_launches["box_attention"], max(r["err"] for r in k3.values()), k3[bf16]),

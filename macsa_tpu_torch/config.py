@@ -2,7 +2,8 @@
 
 Field for field the counterparts of `macsa_tpu/config.py`, with the same
 defaults, minus the fields that only steered the JAX programs (`scan_*`,
-`remat_*`, `fused_attention_interpret`).  `fused_attention` selects the
+`remat_*`, `fused_attention_interpret`, the decoder's `scan_blocks` and
+`scan_unroll`).  `fused_attention` selects the
 hand-written attention kernel (`macsa_tpu_torch/ops/fused_attention.py`)
 and is on by default here.
 """
@@ -87,7 +88,10 @@ class FCMFConfig:
     visual_feat_dim: int = 2048  # ResNet-152 channel dim
     max_text_len: int = 170  # vimacsa_dataset.py:101
     box_heads: int = 8  # roi_modeling.py BoxMultiHeadedAttention(8, 768)
-    # decoder cross-attention mask semantics (Phase 1; not ported yet)
+    # Reproduce the reference decoder's cross-attention mask semantics: a 2-D
+    # mask passed as `memory_len` triggers a *causal tril* over (dec_len,
+    # enc_len) regardless of its values (mm_modeling.py:115-118,607-610).
+    # "causal_quirk" = faithful; "padding" = use the mask as a padding mask.
     decoder_cross_mask_mode: str = "causal_quirk"
     # run the box head's attention core through kernel K3
     # (ops/box_attention.py) when its dropout is not active; off by default
@@ -96,6 +100,33 @@ class FCMFConfig:
     # Multimodal Denoising Encoder on the patch branch when alpha < 1; not
     # ported yet, so it must stay False unless alpha >= 1 (where it is unused)
     use_mde: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderConfig:
+    """IAOG transformer decoder configuration (mm_modeling.py:634-666).
+    The blocks always run unrolled (`block{i}` modules)."""
+
+    vocab_size: int = 15004
+    hidden_size: int = 768
+    num_blocks: int = 12
+    num_heads: int = 12
+    ffn_hidden: int = 768  # PositionWiseFFN(HIDDEN_SIZE, HIDDEN_SIZE) — mm_modeling.py:583
+    dropout: float = 0.1
+    max_position_embeddings: int = 512
+    max_decode_len: int = 20  # --max_len_decoder default (run_pretraining_fcmf.py:61)
+    dtype: str = "float32"
+    # emulate the reference Attention's batch-size-dependent head<->weight
+    # pairing (models/attention.py) — parity testing only
+    emulate_reference_heads: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,14 +38,21 @@ def _token_text(entry) -> Optional[str]:
 
 
 class WordLevelTokenizer:
-    """The subset of a HF fast tokenizer the datasets use: `__call__` on a
-    text or a text pair with `max_length`, `truncation` (False or
-    "only_first"), `padding` (False or "max_length") and
-    `return_token_type_ids`; `pad_token_id`; `__len__`."""
+    """The subset of a HF fast tokenizer the datasets and the generation
+    harness use: `__call__` on a text, a text pair or a list of texts with
+    `max_length`, `truncation` (False, "only_first", or True on single
+    texts), `padding` (False or "max_length") and `return_token_type_ids`;
+    `decode`; `pad_token_id` and the other special tokens' ids (`None`
+    where `tokenizer_config.json` names none); `__len__`."""
 
     def __init__(self, vocab: Dict[str, int], unk_token: str, single: Sequence[Tuple[str, int]],
-                 pair: Sequence[Tuple[str, int]], specials: Sequence[str], pad_token: str):
+                 pair: Sequence[Tuple[str, int]], specials: Sequence[str], pad_token: str,
+                 named_specials: Optional[Dict[str, Optional[str]]] = None):
         self.vocab = dict(vocab)
+        self._tokens = {i: tok for tok, i in self.vocab.items()}
+        for key in _SPECIAL_KEYS:  # bos_token_id, eos_token_id, sep_token_id, cls_token_id, ...
+            token = (named_specials or {}).get(key)
+            setattr(self, f"{key}_id", self.vocab.get(token) if token is not None else None)
         self.unk_token = unk_token
         if unk_token not in self.vocab:
             raise ValueError(f"unk_token {unk_token!r} is not in the vocabulary")
@@ -109,7 +116,8 @@ class WordLevelTokenizer:
         if pad is None:
             raise ValueError("tokenizer_config.json names no pad_token")
         return cls(model["vocab"], model["unk_token"], template(post["single"]),
-                   template(post["pair"]), specials, pad)
+                   template(post["pair"]), specials, pad,
+                   {k: _token_text(config.get(k)) for k in _SPECIAL_KEYS})
 
     def __len__(self) -> int:
         return len(self.vocab)
@@ -127,9 +135,25 @@ class WordLevelTokenizer:
                            for word in _WHITESPACE_SPLIT.findall(piece))
         return ids
 
-    def __call__(self, text: str, text_pair: Optional[str] = None, max_length: Optional[int] = None,
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        """The tokens of `ids` joined by one space (a WordLevel model with no
+        decoder), without the special tokens when asked."""
+        tokens = [self._tokens[int(i)] for i in ids]
+        if skip_special_tokens:
+            tokens = [t for t in tokens if t not in self._specials]
+        return " ".join(tokens)
+
+    def __call__(self, text, text_pair: Optional[str] = None, max_length: Optional[int] = None,
                  truncation=False, padding=False, return_token_type_ids: bool = True,
-                 ) -> Dict[str, List[int]]:
+                 ) -> Dict[str, list]:
+        if isinstance(text, (list, tuple)):  # a batch of single texts: lists of rows
+            if text_pair is not None:
+                raise ValueError("a batch of text pairs is not offered")
+            rows = [self(t, None, max_length, truncation, padding, return_token_type_ids)
+                    for t in text]
+            return {k: [row[k] for row in rows] for k in rows[0]} if rows else {}
+        if truncation is True and text_pair is None:
+            truncation = "only_first"  # one sequence: the two strategies are one
         if truncation not in (False, "only_first") or padding not in (False, "max_length"):
             raise ValueError(f"truncation={truncation!r}, padding={padding!r}: not offered")
         seqs = {"$A": self.tokenize(text)}

@@ -41,16 +41,21 @@ class FeatureExtractor(nn.Module):
     """The reference's text-backbone wrapper (mm_modeling.py:433-446), which
     holds the HF model as `cell`: hence the `encoder.bert.cell.*` keys."""
 
-    def __init__(self, config: TextEncoderConfig, device=None):
+    def __init__(self, config: TextEncoderConfig, device=None,
+                 embedding_table: Optional[nn.Parameter] = None):
         super().__init__()
-        self.cell = TextEncoder(config, device=device)
+        self.cell = TextEncoder(config, device=device, embedding_table=embedding_table)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None, rng=None):
         return self.cell(input_ids, token_type_ids, attention_mask, rng)
 
 
 class FCMFEncoder(nn.Module):
-    def __init__(self, config: FCMFConfig, device=None):
+    """`embedding_table`: the token table shared with the Phase-1 decoder
+    (`models/seq2seq.py`); the classifier keeps a table of its own."""
+
+    def __init__(self, config: FCMFConfig, device=None,
+                 embedding_table: Optional[nn.Parameter] = None):
         super().__init__()
         if config.use_mde and config.alpha < 1.0:  # the JAX model builds the MDE only then
             raise NotImplementedError("the Multimodal Denoising Encoder is not ported yet "
@@ -58,7 +63,8 @@ class FCMFEncoder(nn.Module):
         self.config = config
         mc = config.model
         h, dt = mc.hidden_size, mc.torch_dtype
-        self.bert = FeatureExtractor(config.text, device=device)
+        self.bert = FeatureExtractor(config.text, device=device,
+                                     embedding_table=embedding_table)
         self.vismap2text = layers.Dense(config.visual_feat_dim, h, dt, device=device)
         self.roimap2text = layers.Dense(config.visual_feat_dim, h, dt, device=device)
         self.box_head = BoxMultiHeadedAttention(config.box_heads, h, dt,

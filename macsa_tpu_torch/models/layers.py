@@ -96,13 +96,19 @@ class Dense(nn.Module):
 
 
 class Embed(nn.Module):
-    """Lookup table with f32 parameters; rows come out in `compute_dtype`."""
+    """Lookup table with f32 parameters; rows come out in `compute_dtype`.
+    `weight` hands in a table shared with other modules (the Phase-1 token
+    table, tied three ways) instead of allocating one."""
 
     def __init__(self, num_embeddings: int, dim: int,
-                 compute_dtype: torch.dtype = torch.float32, device=None):
+                 compute_dtype: torch.dtype = torch.float32, device=None,
+                 weight: Optional[nn.Parameter] = None):
         super().__init__()
         self.compute_dtype = compute_dtype
-        self.weight = nn.Parameter(torch.empty(num_embeddings, dim, device=device))
+        if weight is not None and weight.shape[1] != dim:
+            raise ValueError(f"shared table {tuple(weight.shape)} is not {dim} wide")
+        self.weight = (nn.Parameter(torch.empty(num_embeddings, dim, device=device))
+                       if weight is None else weight)
 
     def init_weights_(self, generator: torch.Generator, std: float) -> None:
         self.weight.normal_(0.0, std, generator=generator)

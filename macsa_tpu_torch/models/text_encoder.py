@@ -43,11 +43,17 @@ def create_position_ids(input_ids: torch.Tensor, padding_idx: int) -> torch.Tens
 
 
 class RobertaEmbeddings(nn.Module):
-    def __init__(self, config: TextEncoderConfig, device=None):
+    """`embedding_table`: an externally shared token table (the seq2seq's
+    three-way weight tying, fcmf_pretraining.py:162-166), used as
+    `word_embeddings.weight` instead of a table of `config.vocab_size` rows."""
+
+    def __init__(self, config: TextEncoderConfig, device=None,
+                 embedding_table: Optional[nn.Parameter] = None):
         super().__init__()
         self.config = config
         h, dt = config.hidden_size, config.torch_dtype
-        self.word_embeddings = layers.Embed(config.vocab_size, h, dt, device=device)
+        self.word_embeddings = layers.Embed(config.vocab_size, h, dt, device=device,
+                                            weight=embedding_table)
         self.position_embeddings = layers.Embed(config.max_position_embeddings, h, dt,
                                                 device=device)
         self.token_type_embeddings = layers.Embed(config.type_vocab_size, h, dt,
@@ -71,11 +77,13 @@ class TextEncoder(nn.Module):
     contract the reference consumes from its FeatureExtractor
     (mm_modeling.py:440-446)."""
 
-    def __init__(self, config: TextEncoderConfig, device=None):
+    def __init__(self, config: TextEncoderConfig, device=None,
+                 embedding_table: Optional[nn.Parameter] = None):
         super().__init__()
         self.config = config
         block = block_config(config)
-        self.embeddings = RobertaEmbeddings(config, device=device)
+        self.embeddings = RobertaEmbeddings(config, device=device,
+                                            embedding_table=embedding_table)
         self.encoder = nn.ModuleDict({"layer": nn.ModuleList(
             layers.BertLayer(block, device=device)
             for _ in range(config.num_hidden_layers))})

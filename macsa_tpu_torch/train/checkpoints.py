@@ -15,15 +15,17 @@ reference's checkpoint semantics (run_multimodal_fcmf.py:40-58,316-380,
 
 `restore_params_only` also reads a reference `.pth` (a bare state dict of
 the reference's FCMF, legacy key names included).  The Phase-1 -> Phase-2
-encoder transfer of the JAX module waits for Phase 1.
+encoder transfer (`resolve_iaog_checkpoint`, `load_model_state_dict`,
+`transfer_encoder_params`) works on state dicts.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from macsa_tpu_torch.train.jax_import import normalize_reference_keys
@@ -120,3 +122,77 @@ class CheckpointManager:
         sd = {k: torch.as_tensor(v) for k, v in normalize_reference_keys(got).items()}
         state.model.load_state_dict(sd, strict=True)
         return state
+
+
+# ---------------------------------------------------------------------------
+# Phase-1 -> Phase-2 encoder transfer (run_multimodal_fcmf.py:382-412)
+# ---------------------------------------------------------------------------
+
+TOKEN_TABLE = "decoder.embedding.weight"  # the Phase-1 model's tied table
+WORD_EMBEDDINGS = "encoder.bert.cell.embeddings.word_embeddings.weight"
+
+
+def resolve_iaog_checkpoint(path: str) -> Optional[str]:
+    """Resolve `--pretrained_iaog_path` to a checkpoint file.
+
+    Accepts either a Phase-1 output directory (holding `best.pt` / `last.pt`,
+    `best` first) or a checkpoint file itself: the reference's flag points
+    straight at a checkpoint file (run_multimodal_fcmf.py:382), so both
+    spellings must work.  Returns None when no checkpoint is found."""
+    base = os.path.abspath(path)
+    if os.path.isfile(base):
+        return base
+    for tag in ("best", "last"):
+        cand = os.path.join(base, f"{tag}.pt")
+        if os.path.isfile(cand):
+            return cand
+    return None
+
+
+def load_model_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The model's state dict alone out of a checkpoint file of this package
+    (the optimizer's moments, about two thirds of a Phase-1 checkpoint, are
+    dropped once read), or a bare reference state dict with its legacy key
+    names normalized."""
+    got = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(got, dict) and got.get("format") == FORMAT:
+        return got["model"]
+    if isinstance(got, dict) and "model_state_dict" in got:  # run_multimodal_fcmf.py:40-58
+        got = got["model_state_dict"]
+    return {k: torch.as_tensor(v) for k, v in normalize_reference_keys(got).items()}
+
+
+def resize_embedding(table, new_size: int, init_std: float = 0.02,
+                     seed: int = 0) -> torch.Tensor:
+    """HF resize_token_embeddings equivalent (fcmf_pretraining.py:159-160):
+    truncate, or extend with normal(0.02) rows.  The rows come from numpy's
+    generator at `seed`, as in `macsa_tpu.train.checkpoints.resize_embedding`,
+    so both packages extend a table with the same rows."""
+    table = torch.as_tensor(table)
+    if new_size <= table.shape[0]:
+        return table[:new_size]
+    extra = np.random.default_rng(seed).normal(
+        0.0, init_std, size=(new_size - table.shape[0], table.shape[1]))
+    return torch.cat([table, torch.from_numpy(extra).to(table.dtype)], dim=0)
+
+
+def transfer_encoder_params(seq2seq_state: Dict[str, torch.Tensor],
+                            fcmf_state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Phase-1 -> Phase-2 knowledge transfer on state dicts: a copy of the
+    FCMF classifier's `fcmf_state` with every `encoder.*` entry taken from
+    the FCMFSeq2Seq's `seq2seq_state` (strict=False semantics: the head
+    keeps its fresh init, the decoder is left behind).  The Phase-1 token
+    table (`decoder.embedding.weight`, tied three ways there) becomes the
+    classifier's own word-embedding table, resized when the two
+    vocabularies differ."""
+    out = dict(fcmf_state)
+    for name, value in seq2seq_state.items():
+        if name.startswith("encoder."):
+            out[name] = value
+    table = seq2seq_state.get(TOKEN_TABLE, seq2seq_state.get(WORD_EMBEDDINGS))
+    if table is not None:
+        target = fcmf_state.get(WORD_EMBEDDINGS)
+        if target is not None and target.shape[0] != table.shape[0]:
+            table = resize_embedding(table, target.shape[0])
+        out[WORD_EMBEDDINGS] = table
+    return out

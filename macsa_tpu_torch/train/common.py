@@ -1,5 +1,6 @@
 """Shared driver plumbing: metadata loading, text normalization, the text
-config, pretrained-weight import and the extractor's fingerprint.
+config, pretrained-weight import, the extractor's fingerprint, the device
+flags, the host->device batch copy and the per-epoch record.
 
 The device-free helpers of `macsa_tpu/train/common.py`, copied for the
 PyTorch port (reference: run_multimodal_fcmf.py:170-244): roi_data.csv
@@ -17,19 +18,105 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, List, Optional
+import time
+from typing import Any, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
 
 from macsa_tpu_torch.config import TextEncoderConfig
 from macsa_tpu_torch.data.images import roi_boxes_from_csv
 from macsa_tpu_torch.data.text_preprocess import TextNormalize, convert_unicode
+from macsa_tpu_torch.ops import cuda_lib
 
 _HF_FIELDS = ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
               "intermediate_size", "max_position_embeddings")
 _HF_DEFAULTS = {"type_vocab_size": 1, "pad_token_id": 1, "layer_norm_eps": 1e-5,
                 "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1}
 _BACKBONE_PREFIXES = ("roberta.", "bert.", "cell.", "model.")
+_NUMPY_KEYS_NOT_SENT = ("_idx", "orig_idx", "text", "pad_mask")
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is available; this driver runs on "
+                           "the card unless --device cpu is given")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {name}: only cuda and cpu devices are driven")
+    return device
+
+
+def resolve_fused_attention(flag: str, device: torch.device) -> bool:
+    if flag == "off":
+        return False
+    if flag == "on" and device.type != "cuda":
+        raise ValueError("--fused_attention on needs a CUDA device: the kernel has no CPU "
+                         "form (use auto or off with --device cpu)")
+    return device.type == "cuda"
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """A loader batch's arrays as tensors on `device` (indices, texts and
+    the pad mask stay on the host)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+            for k, v in batch.items()
+            if k not in _NUMPY_KEYS_NOT_SENT and not isinstance(v, list)}
+
+
+class EpochMeter:
+    """What a driver records of one train epoch: its steps and samples, its
+    seconds, the time the host waited for the loader, and the kernels
+    launched (`ops.cuda_lib.launch_counts`, the difference over the epoch).
+
+        meter = EpochMeter(epoch, int(state.step))
+        for batch in meter.batches(loader):
+            ...step...
+            meter.count(batch_size)
+        record = meter.stop(losses=...)
+    """
+
+    def __init__(self, epoch: int, first_step: int):
+        self._counts = cuda_lib.launch_counts
+        self._launches0 = dict(self._counts)
+        self.epoch, self.first_step = epoch, first_step
+        self.steps, self.samples, self.waited = 0, 0, 0.0
+        self.t0 = time.time()
+
+    def batches(self, loader) -> Iterator[dict]:
+        it = iter(loader)
+        while True:
+            t_wait = time.time()
+            batch = next(it, None)
+            self.waited += time.time() - t_wait
+            if batch is None:
+                return
+            yield batch
+
+    def count(self, batch_size: int) -> None:
+        self.steps += 1
+        self.samples += batch_size
+
+    def rate(self) -> float:
+        """Samples a second so far."""
+        return self.samples / (time.time() - self.t0)
+
+    def stop(self, **extra) -> dict:
+        """End the epoch's clock -> its record, with `extra` added."""
+        self.seconds = time.time() - self.t0
+        launched = {k: v - self._launches0.get(k, 0) for k, v in self._counts.items()
+                    if v != self._launches0.get(k, 0)}
+        return {"epoch": self.epoch, "first_step": self.first_step, "steps": self.steps,
+                "samples": self.samples, "seconds": self.seconds,
+                "loader_wait_seconds": self.waited, **extra, "kernel_launches": launched}
+
+    def write(self, writer, step: int, **extra) -> None:
+        """The epoch's line of `metrics.jsonl` (after `stop`)."""
+        if self.steps:
+            writer.write(step, epoch=self.epoch, epoch_steps=self.steps,
+                         epoch_seconds=self.seconds,
+                         epoch_samples_per_s=self.samples / self.seconds,
+                         loader_wait_seconds=self.waited, **extra)
 
 
 def normalize_comment(text: str, normalizer: Optional[TextNormalize] = None) -> str:
@@ -104,10 +191,15 @@ def build_text_config(pretrained_path: Optional[str], dtype: str = "bfloat16",
     return dataclasses.replace(cfg, fused_attention=bool(fused_attention))
 
 
-def import_text_params(model, pretrained_path: Optional[str], logger=None) -> bool:
+def import_text_params(model, pretrained_path: Optional[str], logger=None,
+                       resize_vocab_to: Optional[int] = None) -> bool:
     """Load HF backbone weights (`pytorch_model.bin` under `pretrained_path`)
     into `model.encoder.bert.cell` in place.  The random init is kept, with a
-    warning, when no weight file exists.  -> whether weights were loaded."""
+    warning, when no weight file exists.  -> whether weights were loaded.
+
+    `resize_vocab_to` resizes the file's word-embedding table first
+    (`checkpoints.resize_embedding`): the Phase-1 model's tied token table,
+    which the backbone's word embeddings are, has the tokenizer's length."""
     bin_path = os.path.join(pretrained_path or "", "pytorch_model.bin")
     if not os.path.exists(bin_path):
         if logger:
@@ -123,6 +215,10 @@ def import_text_params(model, pretrained_path: Optional[str], logger=None) -> bo
                 key = key[len(prefix):]
         if key in wanted:  # heads and bookkeeping buffers of the checkpoint are dropped
             sd[key] = value
+    table = "embeddings.word_embeddings.weight"
+    if resize_vocab_to is not None and table in sd:
+        from macsa_tpu_torch.train.checkpoints import resize_embedding
+        sd[table] = resize_embedding(sd[table], resize_vocab_to)
     cell.load_state_dict(sd, strict=True)
     return True
 

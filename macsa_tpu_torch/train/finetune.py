@@ -15,9 +15,11 @@ What differs from the JAX driver:
 * checkpoints are torch files (`best.pt`, `last.pt`), not orbax directories.
 * `--prng` is accepted and ignored (it picks a JAX PRNG); dropout is drawn
   from (seed, step) by explicit torch generators.
+* `--pretrained_iaog_path` takes a Phase-1 output directory of
+  `macsa_tpu_torch.train.pretrain` (its `best.pt`, else `last.pt`) or a
+  checkpoint file.
 * not ported yet, refused with the ROADMAP item that will lift it:
-  `--fine_tune_cnn`, `--pretrained_iaog_path`, `--use_mde` with
-  `alpha < 1`, `--mp > 1`.
+  `--fine_tune_cnn`, `--use_mde` with `alpha < 1`, `--mp > 1`.
 
 One train step covers ResNet feature extraction + all 6 aspect views, as
 there; nothing on the step's path waits on the device: the loss is read
@@ -30,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -43,19 +44,18 @@ from macsa_tpu_torch.data.vimacsa import MACSADataset
 from macsa_tpu_torch.models.fcmf import FCMF
 from macsa_tpu_torch.models.layers import init_weights
 from macsa_tpu_torch.models.resnet import VisualFeatures
-from macsa_tpu_torch.ops import cuda_lib
 from macsa_tpu_torch.train import common
-from macsa_tpu_torch.train.checkpoints import CheckpointManager
-from macsa_tpu_torch.train.feature_cache import VisualFeatureCache
+from macsa_tpu_torch.train.checkpoints import (CheckpointManager, load_model_state_dict,
+                                               resolve_iaog_checkpoint,
+                                               transfer_encoder_params)
+from macsa_tpu_torch.train.common import resolve_device, resolve_fused_attention, to_device
+from macsa_tpu_torch.train.feature_cache import FeatureCacheFeeder
 from macsa_tpu_torch.train.metrics import aspect_report, write_test_reports
 from macsa_tpu_torch.train.optim import AdamW, linear_warmup_schedule
 from macsa_tpu_torch.train.state import TrainState
-from macsa_tpu_torch.train.steps import (extract_visual, make_finetune_eval_step,
-                                         make_finetune_train_step)
+from macsa_tpu_torch.train.steps import make_finetune_eval_step, make_finetune_train_step
 from macsa_tpu_torch.utils.logging import (MetricWriter, device_kernel_seconds, maybe_profile,
                                            setup_logging)
-
-_NUMPY_KEYS_NOT_SENT = ("_idx", "text", "pad_mask")
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -94,7 +94,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "--no-bf16 computes in float32")
     p.add_argument("--resume_from_checkpoint", type=str, default=None)
     p.add_argument("--pretrained_iaog_path", type=str, default=None,
-                   help="Phase-1 checkpoint dir for encoder transfer (not ported yet)")
+                   help="Phase-1 output directory (its best.pt, else last.pt) or "
+                        "checkpoint file for the encoder transfer")
     p.add_argument("--freeze_encoder", action="store_true")
     p.add_argument("--fine_tune_cnn", action="store_true",
                    help="train the ResNet too (not ported yet)")
@@ -146,16 +147,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {name}: no CUDA device is available; this driver runs on "
-                           "the card unless --device cpu is given")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"--device {name}: only cuda and cpu devices are driven")
-    return device
-
-
 def refuse_unported(args) -> None:
     """Flags of the JAX driver whose path is not ported yet."""
     if args.fine_tune_cnn:
@@ -163,10 +154,6 @@ def refuse_unported(args) -> None:
             "--fine_tune_cnn: training the ResNet is not ported (ROADMAP queue 1, the "
             "fine-tune driver's trainable-CNN item: FrozenBatchNorm's weight and bias must "
             "become parameters first)")
-    if args.pretrained_iaog_path:
-        raise NotImplementedError(
-            "--pretrained_iaog_path: the Phase-1 -> Phase-2 encoder transfer needs the "
-            "Phase-1 model and its checkpoints (ROADMAP queue 1, Phase 1 model)")
     if args.use_mde and args.alpha < 1.0:
         raise NotImplementedError(
             "--use_mde with alpha < 1: the Multimodal Denoising Encoder is not ported "
@@ -175,23 +162,6 @@ def refuse_unported(args) -> None:
         raise NotImplementedError(
             f"--mp {args.mp}: tensor parallelism is not ported (ROADMAP queue 1, tensor "
             "parallelism)")
-
-
-def resolve_fused_attention(flag: str, device: torch.device) -> bool:
-    if flag == "off":
-        return False
-    if flag == "on" and device.type != "cuda":
-        raise ValueError("--fused_attention on needs a CUDA device: the kernel has no CPU "
-                         "form (use auto or off with --device cpu)")
-    return device.type == "cuda"
-
-
-def to_device(batch: dict, device: torch.device) -> dict:
-    """A loader batch's arrays as tensors on `device` (indices, texts and
-    the pad mask stay on the host)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items()
-            if k not in _NUMPY_KEYS_NOT_SENT and not isinstance(v, list)}
 
 
 def main(argv: Optional[list] = None, *,
@@ -245,6 +215,17 @@ def main(argv: Optional[list] = None, *,
     init_weights(visual, torch.Generator(device).manual_seed(args.seed + 1))
     common.import_text_params(model, args.pretrained_hf_model, logger)
     common.import_resnet_params(visual, args.resnet_weights, logger)
+
+    # --- IAOG encoder transfer (run_multimodal_fcmf.py:382-412) ----------
+    if args.pretrained_iaog_path:
+        ckpt_path = resolve_iaog_checkpoint(args.pretrained_iaog_path)
+        if ckpt_path is not None:
+            logger.info(f"Transferring IAOG encoder from {ckpt_path}")
+            model.load_state_dict(transfer_encoder_params(
+                load_model_state_dict(ckpt_path), model.state_dict()), strict=True)
+        else:
+            logger.warning(f"no IAOG checkpoint under {args.pretrained_iaog_path}; "
+                           "training from scratch")
     if model_hook is not None:
         model_hook(model, visual)
 
@@ -285,82 +266,40 @@ def main(argv: Optional[list] = None, *,
     use_feature_cache = (args.cache_visual_features == "on" or
                          (args.cache_visual_features == "auto"
                           and not args.fine_tune_cnn))
-    caches: dict = {}
-    cached_rows: dict = {}  # split -> np.bool_ [n] rows already cached
-    feature_dtype = cfg.model.torch_dtype
+    feeders: dict = {}  # split -> FeatureCacheFeeder
 
     # --- cross-stage on-disk feature cache (disk_feature_cache.py) -------
-    disk_cache, split_keys, cache_fp = None, {}, None
+    disk_cache, cache_fp = None, None
     if use_feature_cache and args.feature_cache_dir:
-        from macsa_tpu_torch.train.disk_feature_cache import (DiskFeatureCache,
-                                                              prefill_hbm_cache, record_key)
+        from macsa_tpu_torch.train.disk_feature_cache import DiskFeatureCache, record_key
         disk_cache = DiskFeatureCache(args.feature_cache_dir)
         cache_fp = common.resnet_fingerprint(args.resnet_weights, rcfg, args.seed)
 
     def ensure_cache(split: str, dataset) -> None:
-        """Create the split's device cache and prefill it from disk BEFORE
-        the loader starts, so epoch-0 batches whose features are already on
-        disk skip host decoding entirely (needs_pixels consults
-        cached_rows, which the prefill marks)."""
-        if not use_feature_cache or split in caches:
+        """Create the split's feeder (its device cache, prefilled from disk)
+        BEFORE the loader starts."""
+        if not use_feature_cache or split in feeders:
             return
-        n = len(dataset)
-        caches[split] = VisualFeatureCache(
-            n, cfg.num_imgs, cfg.num_roi, cfg.num_patches, cfg.visual_feat_dim,
-            dtype=feature_dtype, device=device)
-        cached_rows[split] = np.zeros(n, np.bool_)
-        logger.info(f"visual feature cache[{split}]: "
-                    f"{caches[split].nbytes / 2**20:.0f} MiB on {device}")
+        keys = None
         if disk_cache is not None:
-            split_keys[split] = [
-                record_key(rec.get("list_img") or [], args.image_dir,
-                           roi_boxes, args.num_imgs, args.num_rois, cache_fp)
-                for rec in dataset.records]
-            loaded = prefill_hbm_cache(disk_cache, split_keys[split], caches[split])
-            if loaded.any():
-                cached_rows[split] |= loaded
-                logger.info(f"feature cache[{split}]: prefilled {int(loaded.sum())}/{n} "
-                            f"rows from disk ({args.feature_cache_dir})")
+            keys = [record_key(rec.get("list_img") or [], args.image_dir,
+                               roi_boxes, args.num_imgs, args.num_rois, cache_fp)
+                    for rec in dataset.records]
+        feeders[split] = FeatureCacheFeeder(visual, cfg, len(dataset), device, "_idx",
+                                            disk_cache=disk_cache, keys=keys, logger=logger,
+                                            name=f"[{split}]")
 
     def featurize(split: str, batch: dict) -> dict:
         """Loader batch (numpy) -> device batch, raw pixels replaced with
-        (possibly cached) visual features.
-
-        Per-batch host-side warm check: drop_last drops a *different* tail
-        each epoch, so a later epoch can contain rows the first pass never
-        saw: those batches recompute and fill the cache."""
-        idx = np.asarray(batch["_idx"])
-        sent = to_device(batch, device)
+        (possibly cached) visual features."""
         if not use_feature_cache:
-            return sent
-        # absent when the loader sent a light (all-rows-warm) batch
-        images = sent.pop("images", None)
-        roi_images = sent.pop("roi_images", None)
-        cache = caches[split]
-        valid = idx >= 0  # pad rows carry -1
-        if cached_rows[split][idx[valid]].all():
-            grid, roi = cache.lookup(idx)
-        else:
-            assert images is not None, (
-                "cold feature-cache rows in a pixel-less batch: the "
-                "loader's needs_pixels gate and cached_rows disagree")
-            with torch.no_grad():
-                grid, roi = extract_visual(visual, images, roi_images, out_dtype=feature_dtype)
-            cache.update(idx, grid, roi)
-            cached_rows[split][idx[valid]] = True
-            if disk_cache is not None:
-                rows = np.nonzero(valid)[0]
-                keys = [split_keys[split][int(idx[r])] for r in rows]
-                disk_cache.store_async(keys, grid[rows], roi[rows])
-        sent["grid"], sent["roi"] = grid, roi
-        return sent
+            return to_device(batch, device)
+        return feeders[split](batch)
 
     def pixels_needed(split: str):
         """Per-sample gate for the loader: pixels are required only until the
         device feature cache owns that row (None => always carry pixels)."""
-        if not use_feature_cache:
-            return None
-        return lambda i: not (split in cached_rows and cached_rows[split][i])
+        return feeders[split].needs_pixels if use_feature_cache else None
 
     def run_eval(dataset, split: str = "dev") -> dict:
         """Dev/test eval: every row computed once, the trailing pad rows of
@@ -392,47 +331,29 @@ def main(argv: Optional[list] = None, *,
         result["epochs"] = []
         for epoch in range(start_epoch, args.num_train_epochs):
             loader.set_epoch(epoch)
-            launches0 = dict(cuda_lib.launch_counts)
-            first_step, losses = int(state.step), []
-            t0, seen, waited, i = time.time(), 0, 0.0, 0
-            batches = iter(loader)
+            meter, losses = common.EpochMeter(epoch, int(state.step)), []
             # with --profile_dir: one trace an epoch, of its train steps only
             with maybe_profile(args.profile_dir, tag=f"epoch{epoch}") as prof:
-                while True:
-                    t_wait = time.time()
-                    batch = next(batches, None)
-                    waited += time.time() - t_wait
-                    if batch is None:
-                        break
+                for batch in meter.batches(loader):
                     metrics = train_step(featurize("train", batch), args.seed)
-                    seen += args.train_batch_size
-                    i += 1
-                    if i % args.log_every == 0:
-                        loss = float(metrics["loss"])
+                    meter.count(args.train_batch_size)
+                    if meter.steps % args.log_every == 0:
+                        loss, rate = float(metrics["loss"]), meter.rate()
                         losses.append(loss)
-                        rate = seen / (time.time() - t0)
-                        logger.info(f"epoch {epoch} step {i}: "
+                        logger.info(f"epoch {epoch} step {meter.steps}: "
                                     f"loss {loss:.4f}  {rate:.2f} samples/s")
                         writer.write(int(state.step), loss=loss,
                                      samples_per_s=rate, epoch=epoch)
                 if device.type == "cuda":
                     torch.cuda.synchronize(device)  # the epoch's last step has ended
-            seconds = time.time() - t0
+            record = meter.stop(losses=losses)
             kernel_s = device_kernel_seconds(prof) if prof is not None else None
-            launched = {k: v - launches0.get(k, 0)
-                        for k, v in cuda_lib.launch_counts.items()
-                        if v != launches0.get(k, 0)}
-            result["epochs"].append({
-                "epoch": epoch, "first_step": first_step, "steps": i, "samples": seen,
-                "seconds": seconds, "loader_wait_seconds": waited,
-                # the card's kernels and copies alone, from the profiler
-                # (--profile_dir only; None otherwise and on the CPU)
-                "device_kernel_ms_per_step": (kernel_s * 1e3 / i if kernel_s and i else None),
-                "losses": losses, "kernel_launches": launched})
-            if i:
-                writer.write(int(state.step), epoch=epoch, epoch_steps=i,
-                             epoch_seconds=seconds, epoch_samples_per_s=seen / seconds,
-                             loader_wait_seconds=waited)
+            # the card's kernels and copies alone, from the profiler
+            # (--profile_dir only; None otherwise and on the CPU)
+            record["device_kernel_ms_per_step"] = (
+                kernel_s * 1e3 / meter.steps if kernel_s and meter.steps else None)
+            result["epochs"].append(record)
+            meter.write(writer, int(state.step))
             if args.do_eval and dev_ds is not None:
                 report = run_eval(dev_ds)
                 f1 = report["average"]["f1"]

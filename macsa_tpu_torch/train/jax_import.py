@@ -86,10 +86,9 @@ def box_head_state_dict(p) -> StateDict:
     return sd
 
 
-def fcmf_state_dict_from_jax(params, num_text_layers: int) -> StateDict:
-    """FCMF classifier params -> reference-named state dict (inverse of
-    `macsa_tpu.train.torch_import.import_fcmf_classifier`)."""
-    enc = params["encoder"]
+def fcmf_encoder_state_dict_from_jax(enc, num_text_layers: int) -> StateDict:
+    """FCMFEncoder params -> `encoder.*` keys (inverse of
+    `macsa_tpu.train.torch_import.import_fcmf_encoder`)."""
     sd = _prefixed("encoder.bert.cell",
                    text_encoder_state_dict_from_jax(enc["bert"], num_text_layers))
     for name in ("vismap2text", "roimap2text"):
@@ -100,16 +99,59 @@ def fcmf_state_dict_from_jax(params, num_text_layers: int) -> StateDict:
     for name in ("text2img_attention", "mm_attention"):
         sd.update(_prefixed(f"encoder.{name}.layer.0",
                             bert_block_state_dict(enc[name]["layer_0"])))
+    return sd
+
+
+def fcmf_state_dict_from_jax(params, num_text_layers: int) -> StateDict:
+    """FCMF classifier params -> reference-named state dict (inverse of
+    `macsa_tpu.train.torch_import.import_fcmf_classifier`)."""
+    sd = fcmf_encoder_state_dict_from_jax(params["encoder"], num_text_layers)
     sd.update(_prefixed("text_pooler.dense", dense_state_dict(params["text_pooler"]["dense"])))
     sd.update(_prefixed("classifier", dense_state_dict(params["classifier"])))
     return sd
 
 
-def fcmf_param_paths(params, num_text_layers: int) -> Dict[str, Tuple[str, ...]]:
-    """Port parameter name -> path of the JAX FCMF leaf it is made from
-    (the box head's per-head gates `WGs.{h}.*` share the `wg` leaves).
-    Read off `fcmf_state_dict_from_jax` run on a tree whose leaves hold
-    their own index, so the map cannot drift from the importer."""
+def decoder_block_state_dict(p) -> StateDict:
+    """One TransformerDecoderBlock: per-head `w_kx`/`w_qx` as they are,
+    `proj` and the FFN transposed, the AddNorms' `ln`."""
+    sd: StateDict = {}
+    for name in ("attention1", "attention2"):
+        sd[f"{name}.w_kx"], sd[f"{name}.w_qx"] = _t(p[name]["w_kx"]), _t(p[name]["w_qx"])
+        if "weight" in p[name]:  # the mlp / bi_linear score functions
+            sd[f"{name}.weight"] = _t(p[name]["weight"])
+        sd.update(_prefixed(f"{name}.proj", dense_state_dict(p[name]["proj"])))
+    for name in ("addnorm1", "addnorm2", "add_norm3"):
+        sd.update(_prefixed(f"{name}.ln", layer_norm_state_dict(p[name]["ln"])))
+    for name in ("dense1", "dense2"):
+        sd.update(_prefixed(f"ffn.{name}", dense_state_dict(p["ffn"][name])))
+    return sd
+
+
+def seq2seq_state_dict_from_jax(params, num_text_layers: int, num_blocks: int) -> StateDict:
+    """FCMFSeq2Seq params -> reference-named state dict (inverse of
+    `macsa_tpu.train.torch_import.import_fcmf_seq2seq`).  The tied token
+    table `shared_embedding` goes under all three of its names."""
+    dec = params["decoder"]
+    if "blocks" in dec:
+        raise ValueError("scanned (stacked) decoder params: unstack them first "
+                         "(macsa_tpu.models.decoder.unstack_block_params)")
+    bert = dict(params["encoder"]["bert"])
+    bert["embeddings"] = {**bert["embeddings"],
+                          "word_embeddings": {"embedding": params["shared_embedding"]}}
+    sd = fcmf_encoder_state_dict_from_jax({**params["encoder"], "bert": bert},
+                                          num_text_layers)
+    table = sd["encoder.bert.cell.embeddings.word_embeddings.weight"]
+    sd["decoder.embedding.weight"] = sd["decoder.dense.weight"] = table
+    sd["decoder.dense.bias"] = _t(dec["out_bias"])
+    for i in range(num_blocks):
+        sd.update(_prefixed(f"decoder.blks.block{i}", decoder_block_state_dict(dec[f"block_{i}"])))
+    return sd
+
+
+def _param_paths(to_state_dict, params) -> Dict[str, Tuple[str, ...]]:
+    """State-dict name -> path of the JAX leaf it is made from, read off
+    `to_state_dict` run on a tree whose leaves hold their own index, so the
+    map cannot drift from the importer."""
     paths: list = []
 
     def mark(tree, prefix):
@@ -118,8 +160,22 @@ def fcmf_param_paths(params, num_text_layers: int) -> Dict[str, Tuple[str, ...]]
         paths.append(prefix)
         return np.full(np.shape(tree), len(paths) - 1, np.float32)
 
-    sd = fcmf_state_dict_from_jax(mark(params, ()), num_text_layers)
+    sd = to_state_dict(mark(params, ()))
     return {name: paths[int(t.reshape(-1)[0])] for name, t in sd.items()}
+
+
+def fcmf_param_paths(params, num_text_layers: int) -> Dict[str, Tuple[str, ...]]:
+    """Port parameter name -> path of the JAX FCMF leaf it is made from
+    (the box head's per-head gates `WGs.{h}.*` share the `wg` leaves)."""
+    return _param_paths(lambda p: fcmf_state_dict_from_jax(p, num_text_layers), params)
+
+
+def seq2seq_param_paths(params, num_text_layers: int,
+                        num_blocks: int) -> Dict[str, Tuple[str, ...]]:
+    """As `fcmf_param_paths`, for FCMFSeq2Seq: the table's three names all
+    map to `("shared_embedding",)`."""
+    return _param_paths(
+        lambda p: seq2seq_state_dict_from_jax(p, num_text_layers, num_blocks), params)
 
 
 def visual_state_dict_from_jax(visual_params) -> StateDict:

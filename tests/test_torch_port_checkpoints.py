@@ -25,10 +25,12 @@ from macsa_tpu_torch.models.layers import init_weights
 from macsa_tpu_torch.models.resnet import VisualFeatures
 from macsa_tpu_torch.train import disk_feature_cache as tdisk
 from macsa_tpu_torch.train import optim
+from macsa_tpu_torch.ops import cuda_lib
+from macsa_tpu_torch.train import common
 from macsa_tpu_torch.train.checkpoints import CheckpointManager
-from macsa_tpu_torch.train.feature_cache import VisualFeatureCache
+from macsa_tpu_torch.train.feature_cache import FeatureCacheFeeder, VisualFeatureCache
 from macsa_tpu_torch.train.state import TrainState
-from macsa_tpu_torch.train.steps import make_finetune_train_step
+from macsa_tpu_torch.train.steps import extract_visual, make_finetune_train_step
 from test_torch_port_slice import (KW, MODEL_KW, RESNET_KW, TEXT_KW, _torch_batch,
                                    serving_batch)
 
@@ -236,3 +238,89 @@ def test_prefill_loads_what_the_disk_holds(tmp_path, rng):
     assert torch.equal(cache.grid[0], torch.from_numpy(grid[1]).bfloat16())
     assert torch.equal(cache.roi[3], torch.from_numpy(roi[0]).bfloat16())
     assert not cache.grid[1].any() and not cache.grid[2].any()
+
+
+class _Log:
+    def __init__(self):
+        self.lines = []
+
+    def info(self, line):
+        self.lines.append(line)
+
+
+@pytest.mark.parametrize("index_key,unit", [("_idx", "rows"), ("orig_idx", "reviews")])
+def test_feeder_extracts_once_then_serves_cache_and_disk(tmp_path, rng, index_key, unit):
+    """What both drivers put between loader and step: a cold batch goes
+    through the ResNet and into both caches, a warm one needs no pixels, and
+    a later process finds the rows on disk before its loader starts."""
+    cfg = tcfg.FCMFConfig(model=tcfg.ModelConfig(dtype="float32", **MODEL_KW),
+                          text=tcfg.TextEncoderConfig(**TEXT_KW), **KW)
+    visual = VisualFeatures(tcfg.ResNetConfig(**RESNET_KW))
+    init_weights(visual, torch.Generator().manual_seed(3))
+    images, img_valid, rois, roi_valid, text = serving_batch(rng)
+    packed = {k: v.numpy() for k, v in _torch_batch(images, img_valid, rois, roi_valid,
+                                                    {}).items()}
+    batch = {**text, **packed, index_key: np.array([3, 1]), "text": ["a", "b"]}
+    keys = ["k0", "k1", "k2", "k3"]
+    disk = tdisk.DiskFeatureCache(str(tmp_path))
+    feeder = FeatureCacheFeeder(visual, cfg, 4, torch.device("cpu"), index_key,
+                                disk_cache=disk, keys=keys)
+    assert all(feeder.needs_pixels(i) for i in range(4))
+    sent = feeder(batch)
+    with torch.no_grad():
+        grid, roi = extract_visual(visual, torch.from_numpy(packed["images"]),
+                                   torch.from_numpy(packed["roi_images"]),
+                                   out_dtype=torch.float32)
+    assert torch.equal(sent["grid"], grid) and torch.equal(sent["roi"], roi)
+    assert not {"images", "roi_images", index_key, "text"} & set(sent)
+    assert torch.equal(sent["input_ids"], torch.from_numpy(text["input_ids"]))
+    assert [feeder.needs_pixels(i) for i in range(4)] == [True, False, True, False]
+
+    # warm: the loader sent no pixels; a pad row (-1) may ride along
+    light = {**text, index_key: np.array([1, -1])}
+    warm = feeder(light)
+    assert torch.equal(warm["grid"][0], grid[1]) and torch.equal(warm["roi"][0], roi[1])
+    with pytest.raises(AssertionError, match="pixel-less"):
+        feeder({**text, index_key: np.array([0, 1])})
+
+    # the next process: rows 1 and 3 come from disk (bf16 files) up front
+    disk.flush()
+    log = _Log()
+    again = FeatureCacheFeeder(visual, cfg, 4, torch.device("cpu"), index_key,
+                               disk_cache=tdisk.DiskFeatureCache(str(tmp_path)), keys=keys,
+                               logger=log, name="[train]", unit=unit)
+    assert again.owned.tolist() == [False, True, False, True]
+    assert log.lines[0].startswith("visual feature cache[train]: ")
+    assert f"feature cache[train]: prefilled 2/4 {unit} from disk" in log.lines[1]
+    served = again({**text, index_key: np.array([3, 1])})
+    assert torch.equal(served["grid"], grid.bfloat16().float())
+
+
+def test_epoch_meter_records_steps_wait_and_launches():
+    class Writer:
+        def write(self, step, **kw):
+            self.step, self.kw = step, kw
+
+    cuda_lib.launch_counts["before"] += 2
+    try:
+        meter = common.EpochMeter(epoch=3, first_step=40)
+        for batch in meter.batches([{"x": 1}, {"x": 2}, {"x": 3}]):
+            cuda_lib.launch_counts["some_kernel"] += batch["x"]
+            meter.count(8)
+        assert meter.rate() > 0
+        record = meter.stop(losses=[1.5])
+    finally:
+        cuda_lib.reset_launch_counts()
+    assert record["kernel_launches"] == {"some_kernel": 6}  # the epoch's own, not "before"
+    assert (record["epoch"], record["first_step"], record["steps"], record["samples"]) == \
+        (3, 40, 3, 24)
+    assert record["losses"] == [1.5]
+    assert 0.0 <= record["loader_wait_seconds"] <= record["seconds"]
+    writer = Writer()
+    meter.write(writer, 43, epoch_mean_loss=0.5)
+    assert writer.step == 43 and writer.kw["epoch_steps"] == 3
+    assert writer.kw["epoch_mean_loss"] == 0.5
+    assert writer.kw["epoch_samples_per_s"] == 24 / record["seconds"]
+    idle = common.EpochMeter(0, 0)
+    idle.stop()
+    idle.write(None, 0)  # an epoch without steps writes no line

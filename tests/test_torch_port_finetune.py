@@ -108,7 +108,6 @@ def test_driver_trains_evaluates_tests_and_writes_the_artifacts(data, tmp_path):
 
 @pytest.mark.parametrize("flags,reason", [
     (["--fine_tune_cnn"], "training the ResNet is not ported"),
-    (["--pretrained_iaog_path", "/nowhere"], "Phase-1"),
     (["--use_mde"], "Denoising Encoder is not ported"),
     (["--mp", "2"], "tensor parallelism is not ported")])
 def test_driver_refuses_what_is_not_ported_with_its_reason(data, tmp_path, flags, reason):

@@ -132,6 +132,71 @@ def test_attention_tensor_core_kernels_at_tile_edges(cuda, rate, l):
     _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, 3e-2)
 
 
+# Phase 1's shapes: the train step and the eval decode send K1 [16, 170, 768],
+# the driver's debug decode [2, 170, 768], BERTScore [<= 16, 64, 768]
+# (forward only); the decoder's own attention never reaches K1
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,l", [(16, 170), (2, 170), (16, 64)])
+def test_attention_kernels_at_the_phase1_shapes(cuda, dtype, tol, rate, b, l):
+    g = torch.Generator(cuda).manual_seed(3)
+    heads, seed = 12, 99
+    q, k, v, gout = (torch.randn(b, l, heads * 64, device=cuda, generator=g).to(dtype)
+                     for _ in range(4))
+    lens = torch.randint(8, l + 1, (b,), device=cuda, generator=g)
+    lens[0] = l
+    mask = torch.zeros(b, l, device=cuda).masked_fill(
+        torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
+    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.attention_variant(dtype, 64, l) == variant
+    assert fa.attention_variant(dtype, 64, l, backward=True) == variant
+    _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol)
+
+
+def test_seq2seq_decode_on_gpu_matches_cpu(cuda):
+    """The Phase-1 model at a small width: teacher-forcing logits and the
+    greedy and beam-3 tokens on the card (K1 in the text encoder) against
+    the CPU's (its plain version), in f32."""
+    from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq
+    kw = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=2, intermediate_size=128)
+    cfg = config.FCMFConfig(model=config.ModelConfig(**kw),
+                            text=config.TextEncoderConfig(vocab_size=96,
+                                                          max_position_embeddings=64, **kw),
+                            num_imgs=2, num_roi=2, num_patches=4, visual_feat_dim=32,
+                            max_text_len=40, box_heads=8)
+    dec = config.DecoderConfig(vocab_size=96, hidden_size=64, num_blocks=2, num_heads=2,
+                               ffn_hidden=64, max_decode_len=8)
+    cpu_model = FCMFSeq2Seq(cfg, dec)
+    init_weights(cpu_model, torch.Generator().manual_seed(0), 0.3)
+    gpu_model = FCMFSeq2Seq(cfg, dec, device=cuda)
+    gpu_model.load_state_dict(cpu_model.state_dict(), strict=True)
+    assert gpu_model.decoder.dense.weight is gpu_model.shared_embedding
+    g = torch.Generator().manual_seed(1)
+    b = 3
+    ids = torch.randint(3, 96, (b, 40), generator=g, dtype=torch.int32)
+    mask = torch.ones(b, 40, dtype=torch.int32)
+    mask[1, 25:] = 0
+    dec_ids = torch.randint(3, 96, (b, 8), generator=g, dtype=torch.int32)
+    feats = (torch.randn(b, 2, 4, 32, generator=g), torch.randn(b, 2, 2, 32, generator=g),
+             torch.rand(b, 2, 2, 4, generator=g))
+    added = torch.ones(b, 44, dtype=torch.int32)
+    on = lambda *xs: [x.to(cuda) for x in xs]
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        want = cpu_model(ids, dec_ids, *feats, None, mask, added)
+        got = gpu_model(*on(ids, dec_ids, *feats), None, *on(mask, added))
+    assert cuda_lib.launch_counts["fused_self_attention"] == 2
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    kw = dict(attention_mask=mask, added_attention_mask=added)
+    gkw = {k: v.to(cuda) for k, v in kw.items()}
+    assert torch.equal(gpu_model.greedy_decode(*on(ids, *feats), 0, 2, **gkw).cpu(),
+                       cpu_model.greedy_decode(ids, *feats, 0, 2, **kw))
+    seqs, scores = gpu_model.beam_decode(*on(ids, *feats), 0, 2, beam_size=3, **gkw)
+    cpu_seqs, cpu_scores = cpu_model.beam_decode(ids, *feats, 0, 2, beam_size=3, **kw)
+    assert torch.equal(seqs.cpu(), cpu_seqs)
+    torch.testing.assert_close(scores.cpu(), cpu_scores, rtol=0, atol=1e-3)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_backward_is_bitwise_repeatable(cuda, dtype):
     """No atomics in either variant: a block owns every sum it writes, so

@@ -41,7 +41,8 @@ SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attentio
                  "data.text_preprocess", "data.png", "data.images", "data.tokenizer",
                  "data.vimacsa", "data.loader", "data.synth", "train.metrics", "train.common",
                  "train.feature_cache", "train.disk_feature_cache", "train.checkpoints",
-                 "train.finetune")
+                 "train.finetune", "models.attention", "models.decoder", "models.seq2seq",
+                 "data.iaog", "tools.iaog_labels", "train.generation", "train.pretrain")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
