@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: serving path, train steps of both
-phases, decode, and the two drivers from files (Phase 1, then Phase 2 on its encoder).
+phases, decode, the two drivers from files (Phase 1, then Phase 2 on its
+encoder), the trainable CNN, the offline labelers, the MDE and the inference CLI.
 
     python3 chip_smoke.py
 
@@ -48,9 +49,19 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
   2 epochs with the generation eval, then a resume), and the fine-tune
   driver on its output (`--pretrained_iaog_path`, a shared
   `--feature_cache_dir`): the two-phase pipeline end to end,
-* and, after the last timed step (so that no timing has the profiler in
-  its process), breaks two bf16 train steps' device time down by kernel
-  and reads the device time of K1's and SDPA's backward,
+* then, on a second synthetic dataset (16 train reviews, 12 images):
+  `--fine_tune_cnn` (one f32 step's loss and gradients, the ResNet's
+  convolutions and all four tensors of every BatchNorm included, through
+  the kernels against the plain path at batch 1; timed bf16 steps at the
+  largest batch of 8, 4, 2 that fits, with peak memory; the driver for one
+  epoch), both offline aspect labelers (`tools/image_categories.py`,
+  `tools/roi_categories.py`: train one epoch, label every image), the FCMF
+  with the Multimodal Denoising Encoder (alpha 0.7; forward and gradients
+  in f32 and bf16 against the plain path), and the inference CLI
+  (`inference/cli.py`, f32: batch mode over 16 records at batch 8 and one
+  single-sample call, serving the `--fine_tune_cnn` checkpoint with the
+  labelers' taggers, against the plain path on the same tensors),
+* and, at the end, reads the device time of K1's and SDPA's backward,
 and checks that each path went through its kernels.  Each phase prints
 its lines; any failure raises and the exit code is not 0.  The
 second-to-last line lists the kernels as JSON; the last line is the run's
@@ -60,7 +71,9 @@ JSON verdict.  Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -1684,6 +1697,396 @@ def phase_pretrain(card, cuda_lib, synth, pretrain, finetune):
     return launches
 
 
+FT_CNN_BATCHES = (8, 4, 2)  # --fine_tune_cnn: the largest of these that fits the card
+FT_CNN_STEPS = 3  # timed bf16 steps after one untimed
+
+
+def fine_tune_cnn_step(dev, config, layers, fcmf, resnet, optim, train_state, steps, batch,
+                       b: int) -> dict:
+    """Timed bf16 `--fine_tune_cnn` steps (dropout 0.1, finetune.py's AdamW)
+    at batch `b`: -> {ms, losses, peak_bytes}.  Raises OutOfMemoryError
+    where `b` does not fit; its tensors are then gone with this frame."""
+    kw = dict(dtype="bfloat16", fused_attention=True)
+    cfg = config.FCMFConfig(model=config.ModelConfig(**kw), text=config.TextEncoderConfig(**kw))
+    model, visual = fcmf.FCMF(cfg, device=dev), resnet.VisualFeatures(config.ResNetConfig(),
+                                                                      device=dev)
+    layers.init_weights(model, torch.Generator(dev).manual_seed(33), cfg.model.initializer_range)
+    layers.init_weights(visual, torch.Generator(dev).manual_seed(34))
+    opt = optim.AdamW(model, optim.linear_warmup_schedule(7e-5, 1, 1000), weight_decay=0.01,
+                      max_grad_norm=1.0,
+                      head_learning_rate=optim.linear_warmup_schedule(7e-4, 1, 1000))
+    step = steps.make_finetune_train_step(
+        train_state.TrainState.create(model, visual, opt, fine_tune_cnn=True))
+    batch = {k: v[:b] for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(batch, seed=0)["loss"]]  # untimed: first launch of everything
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FT_CNN_STEPS):
+        losses.append(step(batch, seed=0)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / FT_CNN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    # one more step under torch.profiler, the card's activity only
+    rows = device_profile(lambda: losses.append(step(batch, seed=0)["loss"]), iters=1, warmup=0,
+                          host_too=False)
+    return {"ms": ms, "losses": [x.item() for x in losses], "peak_bytes": peak,
+            "device_ms": sum(r[0] for r in rows) / 1e3, "kernels": sum(r[1] for r in rows)}
+
+
+def phase_fine_tune_cnn(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep,
+                        optim, train_state, finetune, data, work):
+    """`--fine_tune_cnn` at full width, the ResNet-152 training beside the
+    model: (1) one step's loss and gradients through the kernels (K2, K1,
+    K1b) against the plain path, f32 with TF32 off, dropout 0, at batch 1
+    (35 frames: f32 autograd through the ResNet at 8 would not fit), every
+    ResNet tensor's gradient (convolutions and all four tensors of each
+    FrozenBatchNorm) within 1e-3 of its largest; (2) timed bf16 steps at
+    the largest batch of 8, 4, 2 that fits, with peak memory; (3)
+    `finetune.main --fine_tune_cnn` for one epoch from the synthetic files
+    at that batch (gradient accumulation keeps the effective batch at 8):
+    K2 2, K1 12 and K1b 12 launches a step.  -> (launches, batch, the
+    driver's output directory)."""
+    def build(dtype: str, fused: bool):
+        kw = dict(dtype=dtype, fused_attention=fused, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0)
+        cfg = config.FCMFConfig(model=config.ModelConfig(**kw),
+                                text=config.TextEncoderConfig(**kw))
+        return cfg, fcmf.FCMF(cfg, device=dev)
+
+    cfg, model = build("float32", True)
+    _, plain = build("float32", False)
+    layers.init_weights(model, torch.Generator(dev).manual_seed(31), cfg.model.initializer_range)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    visual = resnet.VisualFeatures(config.ResNetConfig(dtype="float32"), device=dev)
+    layers.init_weights(visual, torch.Generator(dev).manual_seed(32))
+    random_bn_(visual, torch.Generator(dev).manual_seed(35))
+    resnet.trainable_batchnorm_(visual).requires_grad_(True)
+    full = serving_batch(dev, cfg)
+    full["labels"] = torch.randint(0, cfg.num_labels, (BATCH, NUM_ASPECTS), device=dev,
+                                   generator=torch.Generator(dev).manual_seed(36))
+    batch = {k: v[:1] for k, v in full.items()}
+    plain_batch = dict(batch)
+    for key in ("images", "roi_images"):
+        plain_batch[key] = image_prep.unpack_normalize_pixels_reference(batch[key],
+                                                                        torch.float32)
+    model.train()
+    plain.train()
+    loss_k, _ = steps.finetune_loss(model, visual, batch, fine_tune_cnn=True)
+    loss_k.backward()
+    kernel_grads = {n: p.grad.clone() for n, p in visual.named_parameters()}
+    visual.zero_grad(set_to_none=True)
+    loss_p, _ = steps.finetune_loss(plain, visual, plain_batch, fine_tune_cnn=True)
+    loss_p.backward()
+    torch.cuda.synchronize()
+    loss_err = abs(loss_k.item() - loss_p.item())
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"fine_tune_cnn loss kernels {loss_k.item()} vs plain "
+                             f"{loss_p.item()}")
+    bn = [m for m in visual.modules() if isinstance(m, resnet.FrozenBatchNorm)]
+    if len(kernel_grads) != len(bn) * 5:  # each BN follows one conv
+        raise AssertionError(f"{len(kernel_grads)} ResNet parameters for {len(bn)} BatchNorms")
+    worst = ("", 0.0)
+    for name, p in visual.named_parameters():
+        tol = 1e-3 * p.grad.abs().max().item()
+        gap = (kernel_grads[name] - p.grad).abs().max().item()
+        if not tol > 0:
+            raise AssertionError(f"fine_tune_cnn: {name} got no gradient")
+        worst = max(worst, (name, gap / tol), key=lambda t: t[1])
+    if not worst[1] <= 1.0:
+        raise AssertionError(f"fine_tune_cnn ResNet gradients: {worst[0]} at {worst[1]} of "
+                             f"its tolerance")
+    model_worst = grad_gap(model, plain, "fine_tune_cnn model gradients kernels vs plain", 1e-3)
+    print(f"phase fine_tune_cnn grad check f32 dropout 0 batch 1 (K2, K1, K1b): loss "
+          f"{loss_k.item():.6f} kernels vs plain {loss_p.item():.6f} (|diff| {loss_err:.3g}, "
+          f"tol 1e-5); all {len(kernel_grads)} ResNet tensors ({len(bn)} BatchNorms x 4 "
+          f"and their convs) within 1e-3 of each one's largest, worst {worst[0]} at "
+          f"{worst[1]:.3g}; model gradients worst {model_worst[0]} at {model_worst[1]:.3g}")
+    del model, plain, visual, kernel_grads, loss_k, loss_p, batch, plain_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the main path: every count from 0, read right after
+    cuda_lib.reset_launch_counts()
+    tried = []
+    for b in FT_CNN_BATCHES:
+        try:
+            timed = fine_tune_cnn_step(dev, config, layers, fcmf, resnet, optim, train_state,
+                                       steps, full, b)
+            break
+        except torch.cuda.OutOfMemoryError:
+            tried.append(b)
+        # out of the handler, the failed attempt's frame and tensors are gone
+        gc.collect()
+        torch.cuda.empty_cache()
+        cuda_lib.reset_launch_counts()
+    else:
+        raise AssertionError(f"fine_tune_cnn: no batch of {FT_CNN_BATCHES} fits")
+    launches = dict(cuda_lib.launch_counts)
+    n = FT_CNN_STEPS + 2  # the untimed, the timed and the profiled steps
+    want = {"device_normalize": 2 * n}
+    for name in ("fused_self_attention", "fused_self_attention_bwd"):
+        want.update({name: 12 * n, f"{name}.wgmma": 12 * n})
+    if launches != want or not all(math.isfinite(x) for x in timed["losses"]):
+        raise AssertionError(f"fine_tune_cnn steps: launches {launches} (want {want}), "
+                             f"losses {timed['losses']}")
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase fine_tune_cnn bf16 batch {b} (did not fit: {tried or 'none'}): "
+          f"{timed['ms']:.2f} ms/step over {FT_CNN_STEPS} steps after one untimed, "
+          f"{b * 7 * 1e3 / timed['ms']:.1f} pairs/s; one more step under torch.profiler: "
+          f"{timed['device_ms']:.2f} ms of device time in {timed['kernels']} kernels; peak memory "
+          f"{timed['peak_bytes'] / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2**30:.1f} GiB; losses "
+          + " ".join(f"{x:.4f}" for x in timed["losses"]) + f"; on {card}")
+
+    out = os.path.join(work, "fine_tune_cnn")
+    n_train = 16
+    before = dict(cuda_lib.launch_counts)
+    t0 = time.perf_counter()
+    result = finetune.main(
+        ["--data_dir", os.path.join(data, "data"), "--image_dir", os.path.join(data, "images"),
+         "--output_dir", out, "--pretrained_hf_model", os.path.join(data, "tok"), "--seed", "0",
+         "--log_every", "1", "--do_train", "--fine_tune_cnn", "--num_train_epochs", "1",
+         "--train_batch_size", str(b), "--eval_batch_size", str(b),
+         "--gradient_accumulation_steps", str(BATCH // b)])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    (epoch,) = result["epochs"]
+    k = n_train // b
+    want = {"device_normalize": 2 * k}
+    for name in ("fused_self_attention", "fused_self_attention_bwd"):
+        want.update({name: 12 * k, f"{name}.wgmma": 12 * k})
+    if epoch["steps"] != k or epoch["kernel_launches"] != want or \
+            not all(math.isfinite(x) for x in epoch["losses"]) or \
+            not os.path.isfile(os.path.join(out, "last.pt")):
+        raise AssertionError(f"fine_tune_cnn driver: epoch {epoch} (want launches {want})")
+    for name, count in cuda_lib.launch_counts.items():
+        launches[name] = launches.get(name, 0) + count - before.get(name, 0)
+    print(f"phase fine_tune_cnn driver: finetune.main --fine_tune_cnn, 1 epoch of {k} steps "
+          f"at batch {b} x {BATCH // b} accumulated, {main_s:.1f} s with the checkpoint; "
+          f"{epoch['samples'] / epoch['seconds']:.2f} samples/s, losses "
+          + " ".join(f"{x:.4f}" for x in epoch["losses"])
+          + f"; launches {epoch['kernel_launches']} (no feature cache: K2 every step)")
+    return launches, b, out
+
+
+def phase_labelers(card, data, image_categories, roi_categories, work):
+    """Both offline labelers from the synthetic files at their defaults
+    (ResNet-152 in bf16, plain Adam over every parameter, the card):
+    `--do_train` for one epoch, then `--get_cate`; the ROI tool on a label
+    CSV written from `roi_data.csv` with labels drawn from a seed.  Each
+    output JSON must name every image.  -> the two classifier files."""
+    images = os.path.join(data, "images")
+    names = sorted(os.listdir(images))
+    out = os.path.join(work, "labelers")
+    classes = image_categories.DEFAULT_CLASSES
+    g = torch.Generator().manual_seed(37)
+    roi_csv = os.path.join(work, "roi_labels.csv")
+    with open(os.path.join(data, "data", "roi_data.csv")) as f:
+        lines = f.read().splitlines()
+    with open(roi_csv, "w") as f:
+        f.write(lines[0] + ",label\n")
+        for line in lines[1:]:
+            f.write(f"{line},{classes[int(torch.randint(0, len(classes), (1,), generator=g))]}\n")
+    common = ["--image_dir", images, "--output_dir", out, "--batch_size", "4",
+              "--num_train_epochs", "1", "--seed", "0", "--do_train", "--get_cate"]
+    runs = {}
+    for name, tool, extra in (
+            ("image", image_categories,
+             ["--image_label_path", os.path.join(data, "data", "resnet152_image_label.json")]),
+            ("roi", roi_categories, ["--roi_label_path", roi_csv])):
+        t0 = time.perf_counter()
+        result = tool.main(common + extra)
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0, result)
+        if sorted(result["labels"]) != names or \
+                not all(set(v) <= set(classes) for v in result["labels"].values()):
+            raise AssertionError(f"labelers {name}: labels {result['labels']}")
+    files = tuple(os.path.join(out, f"{n}_classifier_best") for n in ("image", "roi"))
+    with open(os.path.join(out, "resnet152_image_label.json")) as f:
+        if json.load(f) != runs["image"][1]["labels"] or not all(map(os.path.isfile, files)):
+            raise AssertionError("labelers: outputs missing")
+    for name, (sec, result) in runs.items():
+        tags = sum(len(v) for v in result["labels"].values())
+        print(f"phase labelers {name}: --do_train 1 epoch + --get_cate in {sec:.1f} s "
+              f"(ResNet-152 bf16, Adam over every parameter, the BatchNorms' four tensors "
+              f"included); dev acc {result['best_dev_acc']:.3f}; {len(result['labels'])} "
+              f"images labelled, {tags} tags; on {card}")
+    return files
+
+
+def phase_mde(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep):
+    """The FCMF with the Multimodal Denoising Encoder (`use_mde`, alpha
+    0.7: 34 of 49 patches) at full width, batch 8: the serving forward and
+    one train step's loss and gradients (dropout 0) in f32 and bf16 through
+    the kernels, against the plain path.  f32 (TF32 off): logits within
+    1e-3, the same predictions, the loss within 1e-5, every gradient within
+    1e-3 of its largest.  bf16, where the guidance scores tie and the
+    top-k picks may differ from f32's: its logits, loss and gradients as
+    close to the plain f32 path as the plain bf16 path is, twice over."""
+    def build(dtype: str, fused: bool):
+        kw = dict(dtype=dtype, fused_attention=fused, hidden_dropout_prob=0.0,
+                  attention_probs_dropout_prob=0.0)
+        cfg = config.FCMFConfig(model=config.ModelConfig(**kw),
+                                text=config.TextEncoderConfig(**kw), use_mde=True, alpha=0.7)
+        return cfg, fcmf.FCMF(cfg, device=dev)
+
+    cfg, m32 = build("float32", True)
+    layers.init_weights(m32, torch.Generator(dev).manual_seed(41), cfg.model.initializer_range)
+    models = {("f32", "kernels"): m32, ("bf16", "kernels"): build("bfloat16", True)[1],
+              ("f32", "plain"): build("float32", False)[1],
+              ("bf16", "plain"): build("bfloat16", False)[1]}
+    for m in models.values():
+        m.load_state_dict(m32.state_dict(), strict=True)
+        m.train()
+    visuals = {"f32": resnet.VisualFeatures(config.ResNetConfig(dtype="float32"), device=dev)}
+    layers.init_weights(visuals["f32"], torch.Generator(dev).manual_seed(42))
+    visuals["bf16"] = resnet.VisualFeatures(config.ResNetConfig(), device=dev)
+    visuals["bf16"].load_state_dict(visuals["f32"].state_dict(), strict=True)
+    batch = serving_batch(dev, cfg)
+    batch["labels"] = torch.randint(0, cfg.num_labels, (BATCH, NUM_ASPECTS), device=dev,
+                                    generator=torch.Generator(dev).manual_seed(43))
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    plain_batches = {}
+    for name, dt in dts.items():
+        plain_batches[name] = dict(batch)
+        for key in ("images", "roi_images"):
+            plain_batches[name][key] = image_prep.unpack_normalize_pixels_reference(batch[key],
+                                                                                    dt)
+
+    def run(dtype: str, path: str) -> dict:
+        model, visual = models[(dtype, path)], visuals[dtype]
+        b = batch if path == "kernels" else plain_batches[dtype]
+        preds, logits = steps.make_finetune_eval_step(model, visual)(b)
+        loss, _ = steps.finetune_loss(model, visual, b)
+        loss.backward()
+        return {"preds": preds, "logits": logits.float(), "loss": loss.item(),
+                "grads": {n: p.grad.float() for n, p in model.named_parameters()
+                          if p.grad is not None}}
+
+    # the main path: every count from 0, read right after
+    cuda_lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = {(dt, "kernels"): run(dt, "kernels") for dt in dts}
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+    want = {"device_normalize": 8, "fused_self_attention": 48, "fused_self_attention.wgmma": 24,
+            "fused_self_attention.simt": 24, "fused_self_attention_bwd": 24,
+            "fused_self_attention_bwd.wgmma": 12, "fused_self_attention_bwd.simt": 12}
+    if launches != want:
+        raise AssertionError(f"mde launch counts {launches} != {want}")
+    got.update({(dt, "plain"): run(dt, "plain") for dt in dts})
+    torch.cuda.synchronize()
+    if cuda_lib.launch_counts != launches:
+        raise AssertionError("the mde plain path launched a kernel")
+
+    k32, p32 = got[("f32", "kernels")], got[("f32", "plain")]
+    err = (k32["logits"] - p32["logits"]).abs().max().item()
+    loss_err = abs(k32["loss"] - p32["loss"])
+    if not (err <= 1e-3 and torch.equal(k32["preds"], p32["preds"]) and loss_err <= 1e-5):
+        raise AssertionError(f"mde f32: logits err {err}, loss err {loss_err}, preds equal "
+                             f"{torch.equal(k32['preds'], p32['preds'])}")
+    worst = grad_gap(models[("f32", "kernels")], models[("f32", "plain")],
+                     "mde f32 gradients kernels vs plain", 1e-3)
+    if "encoder.mde.guidance_attention.w_kx" in k32["grads"]:
+        raise AssertionError("the MDE's guidance attention got a gradient")
+
+    def gaps(a: dict) -> tuple:
+        flat = lambda d: torch.cat([d["grads"][n].flatten() for n in sorted(p32["grads"])])
+        return ((a["logits"] - p32["logits"]).abs().max().item(), abs(a["loss"] - p32["loss"]),
+                (flat(a) - flat(p32)).norm().item() / flat(p32).norm().item())
+
+    k16, pl16 = gaps(got[("bf16", "kernels")]), gaps(got[("bf16", "plain")])
+    if not all(k <= 2 * p + 1e-3 for k, p in zip(k16, pl16)):
+        raise AssertionError(f"mde bf16 kernels {k16} vs the plain bf16 path's {pl16} "
+                             f"(logits, loss, relative gradient gap to plain f32)")
+    print(f"phase mde f32 (alpha 0.7, 34 of 49 patches kept): kernels vs plain logits "
+          f"max_abs_err={err:.3g} (atol 1e-3, TF32 off), preds equal, loss |diff| "
+          f"{loss_err:.3g} (tol 1e-5), gradients worst {worst[0]} at {worst[1]:.3g} of "
+          f"1e-3 of its largest; the guidance attention gets no gradient (as in JAX)")
+    print(f"phase mde bf16 against plain f32 (logits max err, loss err, relative gradient "
+          f"gap): kernels {tuple(f'{x:.3g}' for x in k16)}, plain bf16 "
+          f"{tuple(f'{x:.3g}' for x in pl16)} (kernels <= 2 x plain + 1e-3); forward + loss "
+          f"+ backward of both dtypes through the kernels {kernel_s:.2f} s; launches "
+          f"{launches}; on {card}")
+    return launches
+
+
+SERVE_RECORDS, SERVE_BATCH = 16, 8
+
+
+def phase_serve(card, cuda_lib, cli, fcmf, steps, data, ft_out, taggers, work):
+    """The inference CLI (`python -m macsa_tpu_torch.inference.cli`) at
+    full width in f32 on the card: batch mode over 16 synthetic records at
+    `--batch_size 8`, then single-sample mode, serving the `--fine_tune_cnn`
+    run's checkpoint (its trained ResNet), tagging images with the
+    labelers' classifiers, ROIs from `--roi_csv`.  Its predictions must
+    equal the argmax of `make_finetune_eval_step` through the plain path on
+    the tensors the CLI builds (`cli.Server`).  -> launches."""
+    with open(os.path.join(data, "data", "train.json")) as f:
+        records = [{"text": r["comment"],
+                    "image_list": [os.path.join(data, "images", n) for n in r["list_img"]]}
+                   for r in json.load(f)[:SERVE_RECORDS]]
+    records_json = os.path.join(work, "records.json")
+    with open(records_json, "w") as f:
+        json.dump(records, f, ensure_ascii=False)
+    argv = ["--checkpoint", ft_out, "--pretrained_hf_model", os.path.join(data, "tok"),
+            "--image_model_checkpoint", taggers[0], "--roi_model_checkpoint", taggers[1],
+            "--roi_csv", os.path.join(data, "data", "roi_data.csv")]
+    out_jsonl, out_json = os.path.join(work, "served.jsonl"), os.path.join(work, "one.json")
+
+    # the main path: every count from 0, read right after
+    cuda_lib.reset_launch_counts()
+    summary = cli.main(argv + ["--input_json", records_json, "--batch_size", str(SERVE_BATCH),
+                               "--output_file", out_jsonl])
+    t0 = time.perf_counter()
+    single = cli.main(argv + ["--text", records[0]["text"], "--image_list",
+                              *records[0]["image_list"], "--output_file", out_json])
+    single_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.launch_counts)
+    forwards = SERVE_RECORDS // SERVE_BATCH + 1
+    want = {"fused_self_attention": 12 * forwards, "fused_self_attention.simt": 12 * forwards}
+    if launches != want:
+        raise AssertionError(f"serve launches {launches} != {want} (f32: K1's CUDA-core "
+                             f"variant; host-normalized pixels: no K2)")
+    with open(out_jsonl) as f:
+        rows = [json.loads(line) for line in f]
+
+    # the same tensors through the plain path
+    server = cli.Server(cli.build_argparser().parse_args(argv + ["--text", "-"]))
+    cfg = server.config
+    plain_cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, fused_attention=False),
+        text=dataclasses.replace(cfg.text, fused_attention=False))
+    plain = fcmf.FCMF(plain_cfg, device=server.device)
+    plain.load_state_dict(server.model.state_dict(), strict=True)
+    plain_step = steps.make_finetune_eval_step(plain, server.visual)
+    recs = [server.prep_record(r["text"], r["image_list"]) for r in records]
+    preds = torch.cat([plain_step(server.batch(recs[i:i + SERVE_BATCH]))[0]
+                       for i in range(0, len(recs), SERVE_BATCH)]).cpu().tolist()
+    single_plain = cli.report(plain_step(server.batch(recs[:1]))[0][0].cpu().tolist())
+    torch.cuda.synchronize()
+    if cuda_lib.launch_counts != launches:
+        raise AssertionError("the serve plain path launched a kernel")
+    want_rows = [{"image_tags": rec["img_tags"], "roi_tags": rec["roi_tags"],
+                  "prediction": cli.report(p)} for rec, p in zip(recs, preds)]
+    got_rows = [{k: r[k] for k in ("image_tags", "roi_tags", "prediction")} for r in rows]
+    if got_rows != want_rows or single != single_plain:
+        raise AssertionError(f"serve: the CLI's {got_rows[:2]}... vs the plain path's "
+                             f"{want_rows[:2]}...; single {single}")
+    print(f"phase serve batch: {summary['records']} records at --batch_size "
+          f"{summary['batch_size']}, records_per_s {summary['records_per_s']} (host "
+          f"preparation {summary['host_prep_share']:.3f} of the time: decode, resize, the two "
+          f"taggers, tokenize; the forward {summary['forward_share']:.3f}); predictions equal "
+          f"the plain path's argmax; single-sample call {single_s:.2f} s with its model load; "
+          f"{sum(len(r['image_tags']) for r in rows)} image tags, "
+          f"{sum(len(r['roi_tags']) for r in rows)} ROI tags; launches {launches}; on {card}")
+    return launches
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     from macsa_tpu_torch import config
@@ -1695,6 +2098,8 @@ def main() -> int:
     from macsa_tpu_torch.data import synth
     from macsa_tpu_torch.train import finetune, optim, pretrain, steps
     from macsa_tpu_torch.train import state as train_state
+    from macsa_tpu_torch.inference import cli
+    from macsa_tpu_torch.tools import image_categories, roi_categories
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
@@ -1742,6 +2147,17 @@ def main() -> int:
     decode_launches = run(phase_decode, dev, smi, cuda_lib, config, layers, seq2seq, resnet,
                           steps)
     pretrain_launches = run(phase_pretrain, smi, cuda_lib, synth, pretrain, finetune)
+    with tempfile.TemporaryDirectory() as work:
+        # the files of the last four phases: 16 train reviews, 12 images of 256^2
+        data = os.path.join(work, "synth")
+        synth.write_dataset(data, n_train=SERVE_RECORDS, n_layers=12, image_size=256, seed=0,
+                            n_dev=4, n_test=4)
+        ft_cnn_launches, _, ft_out = run(phase_fine_tune_cnn, dev, smi, cuda_lib, *model_mods,
+                                         optim, train_state, finetune, data, work)
+        taggers = run(phase_labelers, smi, data, image_categories, roi_categories, work)
+        mde_launches = run(phase_mde, dev, smi, cuda_lib, *model_mods)
+        serve_launches = run(phase_serve, smi, cuda_lib, cli, fcmf, steps, data, ft_out,
+                             taggers, work)
     run(phase_k1_bwd_device, k1_bwd)
 
     def entry(name, source, replaces, launched, err, timed):
@@ -1764,9 +2180,12 @@ def main() -> int:
     k1b_err = max([max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values()]
                   + [k1_phase1["grad"]])
     phase1 = (step_launches, decode_launches, pretrain_launches)
+    this_slice = (ft_cnn_launches, mde_launches, serve_launches)
 
-    def phase1_launches(name):
-        return sum(path.get(name, 0) for path in phase1)
+    def later_launches(name):
+        """Launches on Phase 1's paths, and on the fine_tune_cnn, mde and
+        serve phases'."""
+        return sum(path.get(name, 0) for path in phase1 + this_slice)
     k4_conv1 = next(r for (name, dt), r in k4.items() if name.startswith("conv1") and dt == bf16)
     kernels = [
         entry("fused_self_attention", "fused_attention_wgmma.cu",
@@ -1774,15 +2193,15 @@ def main() -> int:
               launches["fused_self_attention"] + fused_launches["fused_self_attention"]
               + train_launches["fused_self_attention"]
               + finetune_launches["fused_self_attention"]
-              + phase1_launches("fused_self_attention"), k1_err, k1[("-10000", bf16)]),
+              + later_launches("fused_self_attention"), k1_err, k1[("-10000", bf16)]),
         entry("fused_self_attention_bwd", "fused_attention_wgmma.cu",
               "macsa_tpu/ops/fused_attention.py:118", train_launches["fused_self_attention_bwd"]
               + finetune_launches["fused_self_attention_bwd"]
-              + phase1_launches("fused_self_attention_bwd"), k1b_err, k1_bwd0),
+              + later_launches("fused_self_attention_bwd"), k1b_err, k1_bwd0),
         entry("device_normalize", "image_prep.cu", "macsa_tpu/ops/image_prep.py:36",
               launches["device_normalize"] + fused_launches["device_normalize"]
               + train_launches["device_normalize"] + finetune_launches["device_normalize"]
-              + phase1_launches("device_normalize"),
+              + later_launches("device_normalize"),
               max([r["err"] for r in k2.values()] + [k2_phase1]),
               k2[("packed_rois", bf16)]),
         entry("box_attention", "box_attention.cu", "macsa_tpu/ops/box_attention_kernel.py:37",

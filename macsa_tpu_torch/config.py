@@ -97,8 +97,8 @@ class FCMFConfig:
     # (ops/box_attention.py) when its dropout is not active; off by default
     # as in the JAX package
     use_pallas_box_attention: bool = False
-    # Multimodal Denoising Encoder on the patch branch when alpha < 1; not
-    # ported yet, so it must stay False unless alpha >= 1 (where it is unused)
+    # Multimodal Denoising Encoder on the patch branch when alpha < 1
+    # (models/mde.py); with alpha >= 1 the flag changes nothing, as in JAX
     use_mde: bool = False
 
 

@@ -13,6 +13,9 @@ the same restructuring as the JAX model:
   `added_attention_mask[:, :L+num_roi]`, a reference quirk kept as is,
 * one `mm_attention` module serves both the text+ROI pass and the final
   [CLS | h_1..h_I | r_1..r_I] fusion, as in the reference,
+* with `use_mde` and `alpha < 1` the Multimodal Denoising Encoder
+  (`models/mde.py`) keeps `int(49 * alpha)` denoised patches of each image
+  for the text->image cross-attention, unmasked, as in JAX,
 * the classifier runs in f32.
 
 Module names are the reference checkpoint's, so `state_dict()` keys are
@@ -29,6 +32,7 @@ from torch import nn
 from macsa_tpu_torch.config import FCMFConfig, TextEncoderConfig
 from macsa_tpu_torch.models import layers
 from macsa_tpu_torch.models.box_attention import BoxMultiHeadedAttention
+from macsa_tpu_torch.models.mde import MultimodalDenoisingEncoder
 from macsa_tpu_torch.models.text_encoder import TextEncoder
 
 
@@ -57,9 +61,6 @@ class FCMFEncoder(nn.Module):
     def __init__(self, config: FCMFConfig, device=None,
                  embedding_table: Optional[nn.Parameter] = None):
         super().__init__()
-        if config.use_mde and config.alpha < 1.0:  # the JAX model builds the MDE only then
-            raise NotImplementedError("the Multimodal Denoising Encoder is not ported yet "
-                                      "(ROADMAP queue 1: the rest of the surface)")
         self.config = config
         mc = config.model
         h, dt = mc.hidden_size, mc.torch_dtype
@@ -75,6 +76,10 @@ class FCMFEncoder(nn.Module):
         self.text2img_pooler = layers.TokenPooler(mc, device=device)
         self.text2roi_pooler = layers.TokenPooler(mc, device=device)
         self.mm_attention = layers.MultimodalEncoder(mc, device=device)
+        # text-guided patch denoising, built only where the JAX model builds
+        # it (fcmf_pretraining.py:267-287)
+        self.mde = (MultimodalDenoisingEncoder(mc, config.alpha, device=device)
+                    if config.use_mde and config.alpha < 1.0 else None)
 
     def forward(self,
                 input_ids: torch.Tensor,          # [B, L]
@@ -99,7 +104,13 @@ class FCMFEncoder(nn.Module):
 
         # A. image-guided cross attention, CLS query only (fcmf_pretraining.py:48-93)
         converted_img = self.vismap2text(_fold(visual_embeds_att).to(dt))  # [B*I, 49, H]
-        img_mask = added_attention_mask[:, :cfg.num_patches].repeat_interleave(num_imgs, 0)
+        if self.mde is not None:
+            # K = int(49 * alpha) strong patches, all valid (fcmf_pretraining.py:272-287)
+            converted_img = self.mde(text_rep, converted_img)
+            img_mask = torch.ones(converted_img.shape[:2], dtype=torch.int32,
+                                  device=converted_img.device)
+        else:
+            img_mask = added_attention_mask[:, :cfg.num_patches].repeat_interleave(num_imgs, 0)
         ext_img_mask = layers.extend_attention_mask(img_mask, dtype=dt)
         text2img = self.text2img_attention(text_rep[:, :1], converted_img, ext_img_mask, rng)
         all_h = self.text2img_pooler(text2img).reshape(b, num_imgs, -1)

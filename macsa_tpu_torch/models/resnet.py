@@ -7,8 +7,12 @@ attention grid and `pooled_features` the spatially averaged 2048-d vector.
 * Key names are torchvision's (`conv1`, `bn1.running_mean`,
   `layerN.i.downsample.{0,1}`), so `macsa_tpu.models.resnet.
   import_torchvision_resnet` consumes the state dict with nothing left over.
-* BatchNorm is frozen (eval-mode statistics held as buffers) and applied
-  as a per-channel affine computed in f32, then cast to the conv dtype.
+* BatchNorm is frozen: the eval-mode affine of its four tensors, computed
+  in f32, then cast to the conv dtype, in training too (the JAX model has
+  no train mode for it).  The four tensors are buffers while the CNN is
+  frozen; `trainable_batchnorm_` makes them parameters, all four as in
+  JAX, where `scale`, `bias`, `mean` and `var` are params (`--fine_tune_cnn`,
+  the offline aspect labelers).
 * Public functions take the JAX layout `[..., H, W, 3]`.  Inside, the
   tensors are NCHW in `torch.channels_last` memory format: the same bytes
   as NHWC, so the permutes in and out copy nothing.  The convolutions go
@@ -34,6 +38,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 class FrozenBatchNorm(nn.Module):
     """Eval-mode BatchNorm as a per-channel affine with imported stats."""
 
+    TENSORS = ("weight", "bias", "running_mean", "running_var")
+
     def __init__(self, features: int, eps: float = 1e-5,
                  compute_dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
@@ -50,6 +56,15 @@ class FrozenBatchNorm(nn.Module):
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
 
+    def make_trainable_(self) -> None:
+        """Turn the four buffers into parameters, under the same names (a
+        state dict does not change).  Their gradients flow through
+        `affine`: the statistics train too, as in JAX."""
+        for name in self.TENSORS:
+            if name in self._buffers:
+                value = self._buffers.pop(name)
+                self.register_parameter(name, nn.Parameter(value))
+
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The f32 per-channel (mul, add) of the frozen statistics."""
         inv = torch.rsqrt(self.running_var + self.eps)
@@ -58,6 +73,14 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mul, add = (t.to(self.compute_dtype) for t in self.affine())
         return x * mul.view(1, -1, 1, 1) + add.view(1, -1, 1, 1)
+
+
+def trainable_batchnorm_(module: nn.Module) -> nn.Module:
+    """Make every FrozenBatchNorm under `module` trainable (in place)."""
+    for m in module.modules():
+        if isinstance(m, FrozenBatchNorm):
+            m.make_trainable_()
+    return module
 
 
 class Conv2d(nn.Module):

@@ -149,17 +149,23 @@ def resolve_iaog_checkpoint(path: str) -> Optional[str]:
     return None
 
 
-def load_model_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """The model's state dict alone out of a checkpoint file of this package
-    (the optimizer's moments, about two thirds of a Phase-1 checkpoint, are
-    dropped once read), or a bare reference state dict with its legacy key
-    names normalized."""
+def load_state_dicts(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                         Optional[Dict[str, torch.Tensor]]]:
+    """(model, visual backbone) state dicts out of a checkpoint file of this
+    package (the optimizer's moments, about two thirds of a checkpoint, are
+    dropped once read), or (a bare reference state dict with its legacy key
+    names normalized, None): a reference `.pth` carries no ResNet."""
     got = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(got, dict) and got.get("format") == FORMAT:
-        return got["model"]
+        return got["model"], got["visual"]
     if isinstance(got, dict) and "model_state_dict" in got:  # run_multimodal_fcmf.py:40-58
         got = got["model_state_dict"]
-    return {k: torch.as_tensor(v) for k, v in normalize_reference_keys(got).items()}
+    return {k: torch.as_tensor(v) for k, v in normalize_reference_keys(got).items()}, None
+
+
+def load_model_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """The model's state dict alone (`load_state_dicts`)."""
+    return load_state_dicts(path)[0]
 
 
 def resize_embedding(table, new_size: int, init_std: float = 0.02,

@@ -19,7 +19,10 @@ What differs from the JAX driver:
   `macsa_tpu_torch.train.pretrain` (its `best.pt`, else `last.pt`) or a
   checkpoint file.
 * not ported yet, refused with the ROADMAP item that will lift it:
-  `--fine_tune_cnn`, `--use_mde` with `alpha < 1`, `--mp > 1`.
+  `--mp > 1`.
+* `--fine_tune_cnn` trains the ResNet beside the model (convolutions and
+  all four tensors of every FrozenBatchNorm, in the one AdamW); the feature
+  cache is then off unless `--cache_visual_features on`, as in JAX.
 
 One train step covers ResNet feature extraction + all 6 aspect views, as
 there; nothing on the step's path waits on the device: the loss is read
@@ -98,13 +101,14 @@ def build_argparser() -> argparse.ArgumentParser:
                         "checkpoint file for the encoder transfer")
     p.add_argument("--freeze_encoder", action="store_true")
     p.add_argument("--fine_tune_cnn", action="store_true",
-                   help="train the ResNet too (not ported yet)")
+                   help="train the ResNet too: its convolutions and all four "
+                        "BatchNorm tensors join the model's parameters in AdamW")
     p.add_argument("--cross_mask_mode", type=str, default="causal_quirk",
                    choices=["causal_quirk", "padding"])
     p.add_argument("--use_mde", action="store_true", default=False,
                    help="enable the Multimodal Denoising Encoder on the "
-                        "patch branch when alpha < 1 (not ported yet; with "
-                        "alpha >= 1 the flag changes nothing)")
+                        "patch branch when alpha < 1 (with alpha >= 1 the "
+                        "flag changes nothing)")
     p.add_argument("--pixel_transfer", type=str, default="packed",
                    choices=["packed", "f32"],
                    help="host->device pixel encoding. packed (default): "
@@ -149,15 +153,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Flags of the JAX driver whose path is not ported yet."""
-    if args.fine_tune_cnn:
-        raise NotImplementedError(
-            "--fine_tune_cnn: training the ResNet is not ported (ROADMAP queue 1, the "
-            "fine-tune driver's trainable-CNN item: FrozenBatchNorm's weight and bias must "
-            "become parameters first)")
-    if args.use_mde and args.alpha < 1.0:
-        raise NotImplementedError(
-            "--use_mde with alpha < 1: the Multimodal Denoising Encoder is not ported "
-            "(ROADMAP queue 1, the rest of the surface)")
     if args.mp != 1:
         raise NotImplementedError(
             f"--mp {args.mp}: tensor parallelism is not ported (ROADMAP queue 1, tensor "
@@ -247,7 +242,7 @@ def main(argv: Optional[list] = None, *,
         head_learning_rate=linear_warmup_schedule(
             args.classifier_head_learning_rate, warmup, num_train_steps),
         accumulate_steps=args.gradient_accumulation_steps)
-    state = TrainState.create(model, visual, optimizer)
+    state = TrainState.create(model, visual, optimizer, fine_tune_cnn=args.fine_tune_cnn)
 
     ckpt = CheckpointManager(args.output_dir)
     start_epoch, best_f1 = 0, 0.0

@@ -99,6 +99,8 @@ def fcmf_encoder_state_dict_from_jax(enc, num_text_layers: int) -> StateDict:
     for name in ("text2img_attention", "mm_attention"):
         sd.update(_prefixed(f"encoder.{name}.layer.0",
                             bert_block_state_dict(enc[name]["layer_0"])))
+    if "mde" in enc:  # built with use_mde and alpha < 1
+        sd.update(_prefixed("encoder.mde", mde_state_dict_from_jax(enc["mde"])))
     return sd
 
 
@@ -111,15 +113,26 @@ def fcmf_state_dict_from_jax(params, num_text_layers: int) -> StateDict:
     return sd
 
 
+def per_head_attention_state_dict(p) -> StateDict:
+    """One PerHeadAttention: `w_kx`/`w_qx` (and a score function's
+    `weight`) as they are, `proj` transposed."""
+    sd = {name: _t(p[name]) for name in ("w_kx", "w_qx", "weight") if name in p}
+    sd.update(_prefixed("proj", dense_state_dict(p["proj"])))
+    return sd
+
+
+def mde_state_dict_from_jax(p) -> StateDict:
+    """MultimodalDenoisingEncoder params -> `guidance_attention.*`."""
+    return _prefixed("guidance_attention",
+                     per_head_attention_state_dict(p["guidance_attention"]))
+
+
 def decoder_block_state_dict(p) -> StateDict:
-    """One TransformerDecoderBlock: per-head `w_kx`/`w_qx` as they are,
-    `proj` and the FFN transposed, the AddNorms' `ln`."""
+    """One TransformerDecoderBlock: its two PerHeadAttentions, the FFN
+    transposed, the AddNorms' `ln`."""
     sd: StateDict = {}
     for name in ("attention1", "attention2"):
-        sd[f"{name}.w_kx"], sd[f"{name}.w_qx"] = _t(p[name]["w_kx"]), _t(p[name]["w_qx"])
-        if "weight" in p[name]:  # the mlp / bi_linear score functions
-            sd[f"{name}.weight"] = _t(p[name]["weight"])
-        sd.update(_prefixed(f"{name}.proj", dense_state_dict(p[name]["proj"])))
+        sd.update(_prefixed(name, per_head_attention_state_dict(p[name])))
     for name in ("addnorm1", "addnorm2", "add_norm3"):
         sd.update(_prefixed(f"{name}.ln", layer_norm_state_dict(p[name]["ln"])))
     for name in ("dense1", "dense2"):
@@ -202,6 +215,17 @@ def visual_state_dict_from_jax(visual_params) -> StateDict:
         if "ds_conv" in p:
             sd.update(_prefixed(f"{prefix}.downsample.0", conv(p["ds_conv"])))
             sd.update(_prefixed(f"{prefix}.downsample.1", bn(p["ds_bn"])))
+    return sd
+
+
+def aspect_classifier_state_dict_from_jax(params) -> StateDict:
+    """AspectClassifier params `{"backbone", "linear"}` -> the reference
+    MyImgModel/MyRoIModel names (`feature_extractor.<torchvision names>`,
+    `linear.*`; inverse of `macsa_tpu.models.aspect_classifier.
+    import_torch_aspect_classifier`)."""
+    sd = _prefixed("feature_extractor",
+                   visual_state_dict_from_jax({"backbone": params["backbone"]}))
+    sd.update(_prefixed("linear", dense_state_dict(params["linear"])))
     return sd
 
 

@@ -102,13 +102,26 @@ class AdamW:
                  accumulate_steps: int = 1):
         if accumulate_steps < 1:
             raise ValueError(f"accumulate_steps must be >= 1, got {accumulate_steps}")
-        no_decay = no_decay_names(model)
-        named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
-        self.params = [p for _, p in named]
         self.schedules = {
             "encoder": _as_schedule(learning_rate),
             "head": _as_schedule(learning_rate if head_learning_rate is None
                                  else head_learning_rate)}
+        self.weight_decay = weight_decay
+        self.params: list = []
+        groups = self._groups(model)
+        self.optimizer = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=eps)
+        self.max_grad_norm = max_grad_norm
+        self.accumulate_steps = accumulate_steps
+        self.updates = 0  # optimizer updates, the schedules' count
+        self._micro = 0
+        self._acc: Optional[list] = None
+
+    def _groups(self, module: nn.Module) -> list:
+        """The trainable parameters of `module` in up to four groups, added
+        to `self.params`."""
+        no_decay = no_decay_names(module)
+        named = [(n, p) for n, p in module.named_parameters() if p.requires_grad]
+        self.params += [p for _, p in named]
         groups = []
         for part in ("encoder", "head"):
             for decay in (True, False):
@@ -117,13 +130,18 @@ class AdamW:
                       and (n in no_decay) != decay]
                 if ps:
                     groups.append({"params": ps, "part": part,
-                                   "weight_decay": weight_decay if decay else 0.0})
-        self.optimizer = torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999), eps=eps)
-        self.max_grad_norm = max_grad_norm
-        self.accumulate_steps = accumulate_steps
-        self.updates = 0  # optimizer updates, the schedules' count
-        self._micro = 0
-        self._acc: Optional[list] = None
+                                   "weight_decay": self.weight_decay if decay else 0.0})
+        return groups
+
+    def add_module(self, module: nn.Module) -> None:
+        """Put a second module's parameters into this optimizer, under the
+        same rules (the trainable ResNet beside the model: optax's one
+        transformation over the `(params, visual_params)` tuple, so one
+        clipping norm over both).  Before the first step only."""
+        if self.updates or self._micro:
+            raise RuntimeError("add_module after the optimizer has stepped")
+        for group in self._groups(module):
+            self.optimizer.add_param_group(group)
 
     @torch.no_grad()
     def step(self) -> None:

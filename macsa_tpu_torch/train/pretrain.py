@@ -21,8 +21,10 @@ What differs from the JAX driver:
   the second a layout of the JAX program (the blocks run unrolled here).
 * nothing on a step's path waits on the device: the loss is read every
   `--log_every` steps and at the epoch's end.
-* one process on one card: `--mp > 1` is refused, and so is `--use_mde`
-  with `alpha < 1`, with the ROADMAP item that will lift each.
+* one process on one card: `--mp > 1` is refused, with the ROADMAP item
+  that will lift it.
+* `--fine_tune_cnn` is accepted and leaves the ResNet frozen, as the JAX
+  driver's Phase-1 step does (it only turns the feature cache's `auto` off).
 
 Run: python -m macsa_tpu_torch.train.pretrain --do_train --do_eval ...
 """
@@ -125,8 +127,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "held; gradient-exact).  0 (default) keeps the "
                         "full-logits loss")
     p.add_argument("--use_mde", action="store_true", default=False,
-                   help="Multimodal Denoising Encoder when alpha < 1 (not "
-                        "ported yet; with alpha >= 1 the flag changes nothing)")
+                   help="Multimodal Denoising Encoder when alpha < 1 (with "
+                        "alpha >= 1 the flag changes nothing)")
     p.add_argument("--resnet_stages", type=str, default="3,8,36,3")
     p.add_argument("--mp", type=int, default=1,
                    help="tensor-parallel size (not ported yet; must be 1)")
@@ -177,10 +179,6 @@ def preprocess_iaog_records(records, normalizer=None):
 
 def refuse_unported(args) -> None:
     """Flags of the JAX driver whose path is not ported yet."""
-    if args.use_mde and args.alpha < 1.0:
-        raise NotImplementedError(
-            "--use_mde with alpha < 1: the Multimodal Denoising Encoder is not ported "
-            "(ROADMAP queue 1, the rest of the surface)")
     if args.mp != 1:
         raise NotImplementedError(
             f"--mp {args.mp}: tensor parallelism is not ported (ROADMAP queue 1, tensor "

@@ -54,13 +54,15 @@ def _tile_visual(x: torch.Tensor, a: int) -> torch.Tensor:
 
 
 def fcmf_forward_all_aspects(model: FCMF, visual: VisualFeatures, batch: Batch,
-                             rng: Optional[DropoutRng] = None) -> torch.Tensor:
+                             rng: Optional[DropoutRng] = None,
+                             fine_tune_cnn: bool = False) -> torch.Tensor:
     """Full FCMF forward over all aspect views -> logits [B, A, num_labels].
 
     The ResNet runs without autograd (the frozen CNN; the JAX step's
-    `stop_gradient`).  If the batch carries precomputed `grid`/`roi`
-    features (the frozen-CNN feature cache), the ResNet is skipped."""
-    grid, roi = visual_features(model, visual, batch)
+    `stop_gradient`) unless `fine_tune_cnn`.  If the batch carries
+    precomputed `grid`/`roi` features (the feature cache), the ResNet is
+    skipped."""
+    grid, roi = visual_features(model, visual, batch, fine_tune_cnn)
     text, b, a = _fold_aspects(batch)
     logits = model(text["input_ids"], _tile_visual(grid, a), _tile_visual(roi, a),
                    _tile_visual(batch["roi_coors"], a), text.get("token_type_ids"),
@@ -69,10 +71,11 @@ def fcmf_forward_all_aspects(model: FCMF, visual: VisualFeatures, batch: Batch,
 
 
 def finetune_loss(model: FCMF, visual: VisualFeatures, batch: Batch,
-                  rng: Optional[DropoutRng] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                  rng: Optional[DropoutRng] = None,
+                  fine_tune_cnn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, accuracy) of one batch: CE in f32, mean over the batch per
     aspect, summed over the aspects; accuracy over all B x A views."""
-    logits = fcmf_forward_all_aspects(model, visual, batch, rng)
+    logits = fcmf_forward_all_aspects(model, visual, batch, rng, fine_tune_cnn)
     labels = batch["labels"].long()
     ce = F.cross_entropy(logits.float().flatten(0, 1), labels.flatten(),
                          reduction="none").reshape(labels.shape)
@@ -85,13 +88,14 @@ def make_finetune_train_step(state: TrainState) -> Callable:
 
     One step: the model in training mode with dropout drawn from generators
     derived from (seed, state.step), the loss, its backward (K1's backward
-    kernel in the text encoder), and one optimizer step.  Nothing in it
-    waits on the device."""
+    kernel in the text encoder; through the ResNet too when
+    `state.fine_tune_cnn`), and one optimizer step.  Nothing in it waits
+    on the device."""
 
     def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         state.model.train()
         rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device)
-        loss, acc = finetune_loss(state.model, state.visual, batch, rng)
+        loss, acc = finetune_loss(state.model, state.visual, batch, rng, state.fine_tune_cnn)
         loss.backward()
         state.apply_gradients()
         return {"loss": loss.detach(), "accuracy": acc}
@@ -117,15 +121,16 @@ def make_finetune_eval_step(model: FCMF, visual: VisualFeatures) -> Callable:
     return step
 
 
-def visual_features(model, visual: VisualFeatures, batch: Batch
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+def visual_features(model, visual: VisualFeatures, batch: Batch,
+                    fine_tune_cnn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The batch's (grid, roi) features in the model's compute dtype: the
-    cached `grid`/`roi` where the batch carries them (the frozen-CNN feature
-    cache), else the ResNet over its pixels, without autograd."""
+    cached `grid`/`roi` where the batch carries them (the feature cache,
+    filled without autograd), else the ResNet over its pixels, with
+    autograd only when `fine_tune_cnn`."""
     dt = model.config.model.torch_dtype
     if "grid" in batch:
         return batch["grid"].to(dt), batch["roi"].to(dt)
-    with torch.no_grad():
+    with torch.set_grad_enabled(fine_tune_cnn and torch.is_grad_enabled()):
         return extract_visual(visual, batch["images"], batch["roi_images"], out_dtype=dt)
 
 
@@ -158,8 +163,10 @@ def make_pretrain_train_step(state: TrainState, vocab_chunk: int = 0) -> Callabl
     -> step(batch, seed) = metrics {"loss", "token_accuracy"} as device
     tensors.
 
-    The visual backbone is frozen: it runs under `no_grad`, or not at all
-    when the batch carries cached `grid`/`roi` features.  Dropout is drawn
+    The visual backbone is frozen, whatever the state says (JAX's
+    `make_pretrain_train_step` always stops its gradient): it runs under
+    `no_grad`, or not at all when the batch carries cached `grid`/`roi`
+    features.  Dropout is drawn
     from generators derived from (seed, state.step).  Nothing in the step
     waits on the device."""
 

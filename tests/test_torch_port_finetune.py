@@ -2,12 +2,14 @@
 
 `main` runs on the port's synthetic dataset with `--device cpu`: the
 artifacts of the reference driver appear, epochs are whole, an epoch on
-cached features takes the steps an uncached run takes, a stopped run
-resumes bitwise, and every flag whose path is not ported raises with its
-reason.  Against the JAX package: with dropout 0 and the parameters carried
-across by `jax_import`, the driver's first losses are those of `macsa_tpu`'s
-train step fed the same batches (the JAX driver's own end-to-end tests are
-marked slow; its step is what the tier-1 suite can afford).
+cached features takes the steps an uncached run takes, a stopped run resumes
+bitwise, and every flag whose path is not ported raises with its reason
+(`--fine_tune_cnn` and `--use_mde` run: test_torch_port_finetune_cnn.py,
+test_torch_port_mde.py). Against the JAX package: with dropout 0 and the
+parameters carried across by `jax_import`, the driver's first losses are
+those of `macsa_tpu`'s train step fed the same batches (the JAX driver's own
+end-to-end tests are marked slow; its step is what the tier-1 suite can
+afford).
 """
 
 import dataclasses
@@ -107,8 +109,6 @@ def test_driver_trains_evaluates_tests_and_writes_the_artifacts(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,reason", [
-    (["--fine_tune_cnn"], "training the ResNet is not ported"),
-    (["--use_mde"], "Denoising Encoder is not ported"),
     (["--mp", "2"], "tensor parallelism is not ported")])
 def test_driver_refuses_what_is_not_ported_with_its_reason(data, tmp_path, flags, reason):
     with pytest.raises(NotImplementedError, match=reason) as err:

@@ -286,7 +286,7 @@ def test_raw_normalize_kernel_over_lengths(cuda, dtype, n_bytes):
         assert torch.equal(got, image_prep.normalize_images_u8_reference(raw, dtype))
 
 
-def _small_model_and_batch(**dropout):
+def _small_model_and_batch(fcmf_kw=None, **dropout):
     """A 2-layer FCMF at width 128 (head dim 32, one the kernels take), a
     small ResNet, and a loader-shaped batch with labels, all on the CPU."""
     kw = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=4,
@@ -294,7 +294,8 @@ def _small_model_and_batch(**dropout):
     cfg = config.FCMFConfig(
         model=config.ModelConfig(**kw),
         text=config.TextEncoderConfig(vocab_size=64, max_position_embeddings=64, **kw),
-        num_imgs=2, num_roi=2, num_patches=4, visual_feat_dim=128, max_text_len=40)
+        num_imgs=2, num_roi=2, num_patches=4, visual_feat_dim=128, max_text_len=40,
+        **(fcmf_kw or {}))
     model = init_weights(FCMF(cfg), torch.Generator().manual_seed(0))
     visual = init_weights(VisualFeatures(config.ResNetConfig(
         stage_sizes=(1, 1, 1, 1), num_filters=4, grid_size=2, dtype="float32")),
@@ -364,6 +365,126 @@ def test_train_step_gradients_on_gpu_match_cpu(cuda):
             continue
         tol = max(1e-4 * want[name].abs().max().item(), 1e-7)
         torch.testing.assert_close(p.grad.cpu(), want[name], rtol=0, atol=tol, msg=name)
+
+
+def _grads_on_cpu_and_card(cuda, model, visual, batch, fine_tune_cnn):
+    """Loss and gradients of `finetune_loss` at dropout 0 on the CPU, then
+    on the card -> (cpu loss, cpu grads, card loss, card grads, launches)."""
+    def run(device):
+        m, v = model.to(device), visual.to(device)
+        m.zero_grad(set_to_none=True)
+        v.zero_grad(set_to_none=True)
+        cuda_lib.reset_launch_counts()
+        loss, _ = finetune_loss(m, v, {k: t.to(device) for k, t in batch.items()},
+                                fine_tune_cnn=fine_tune_cnn)
+        loss.backward()
+        # copies: moving the module to another device later moves its grads too
+        grads = {f"{prefix}{n}": p.grad.to("cpu", copy=True)
+                 for prefix, mod in (("", m), ("visual.", v))
+                 for n, p in mod.named_parameters() if p.grad is not None}
+        return loss.item(), grads
+    model.train()
+    loss, grads = run(torch.device("cpu"))
+    got_loss, got_grads = run(cuda)
+    torch.cuda.synchronize()
+    return loss, grads, got_loss, got_grads, dict(cuda_lib.launch_counts)
+
+
+def test_fine_tune_cnn_gradients_on_gpu_match_cpu(cuda):
+    """`--fine_tune_cnn`: the ResNet's convolutions and all four tensors of
+    each FrozenBatchNorm get gradients on the card (K2, K1, K1b) equal to
+    the CPU's (plain versions) within 1e-4 of each one's largest (f32)."""
+    from macsa_tpu_torch.models.resnet import trainable_batchnorm_
+    model, visual, batch = _small_model_and_batch(hidden_dropout_prob=0.0,
+                                                  attention_probs_dropout_prob=0.0)
+    trainable_batchnorm_(visual).requires_grad_(True)
+    loss, want, got_loss, got, launches = _grads_on_cpu_and_card(cuda, model, visual, batch,
+                                                                 fine_tune_cnn=True)
+    assert launches == {"fused_self_attention": 2, "fused_self_attention.simt": 2,
+                        "fused_self_attention_bwd": 2, "fused_self_attention_bwd.simt": 2,
+                        "device_normalize": 2}
+    assert abs(got_loss - loss) <= 1e-5 * abs(loss)
+    bn_stats = [n for n in got if n.endswith(("running_mean", "running_var"))]
+    assert got.keys() == want.keys() and len(bn_stats) == 2 * 17  # every BN of (1,1,1,1)
+    for name, g in want.items():
+        tol = max(1e-4 * g.abs().max().item(), 1e-7)
+        torch.testing.assert_close(got[name], g, rtol=0, atol=tol, msg=name)
+
+
+def test_mde_model_on_gpu_matches_cpu(cuda):
+    """The FCMF with the MDE (alpha 0.7): logits and gradients on the card
+    against the CPU, f32; the guidance attention gets no gradient."""
+    model, visual, batch = _small_model_and_batch(
+        dict(use_mde=True, alpha=0.7), hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    assert model.encoder.mde is not None
+    want_preds, want = make_finetune_eval_step(model, visual)(batch)
+    preds, logits = make_finetune_eval_step(model.to(cuda), visual.to(cuda))(
+        {k: v.to(cuda) for k, v in batch.items()})
+    torch.testing.assert_close(logits.cpu(), want, rtol=0, atol=1e-4)
+    assert torch.equal(preds.cpu(), want_preds)
+    loss, want_g, got_loss, got_g, _ = _grads_on_cpu_and_card(cuda, model, visual, batch,
+                                                              fine_tune_cnn=False)
+    assert abs(got_loss - loss) <= 1e-5 * abs(loss)
+    assert got_g.keys() == want_g.keys()
+    assert not any(n.startswith("encoder.mde.") for n in got_g)
+    for name, g in want_g.items():
+        tol = max(1e-4 * g.abs().max().item(), 1e-7)
+        torch.testing.assert_close(got_g[name], g, rtol=0, atol=tol, msg=name)
+
+
+def test_cli_on_gpu_matches_cpu(cuda, tmp_path):
+    """`inference.cli` in batch mode on the card (K1 in f32) and on the
+    CPU from one checkpoint and the same files: the same JSONL."""
+    import dataclasses
+    import json
+    import os
+    from macsa_tpu_torch.data import synth
+    from macsa_tpu_torch.inference import cli
+    from macsa_tpu_torch.train import checkpoints, optim
+    from macsa_tpu_torch.train.state import TrainState
+    data = str(tmp_path / "synth")
+    synth.write_dataset(data)
+    small = dict(hidden_size=128, num_attention_heads=4, intermediate_size=256)
+    cfg_path = os.path.join(data, "tok", "config.json")
+    with open(cfg_path) as f:
+        hf = json.load(f)
+    with open(cfg_path, "w") as f:
+        json.dump({**hf, **small}, f)
+    hook = lambda cfg, rcfg: (dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, **small)), rcfg)
+    args = ["--pretrained_hf_model", os.path.join(data, "tok"), "--num_imgs", "2",
+            "--num_rois", "2", "--max_seq_length", "48", "--resnet_stages", "1,1,1,1",
+            "--roi_csv", os.path.join(data, "data", "roi_data.csv")]
+    # a checkpoint of seeded weights, written as the drivers write one
+    from macsa_tpu_torch.train import common
+    model_cfg = config.FCMFConfig(model=config.ModelConfig(**small),
+                                  text=common.text_config_from_hf({**hf, **small}, "float32"),
+                                  num_imgs=2, num_roi=2, max_text_len=48)
+    model = init_weights(FCMF(model_cfg), torch.Generator().manual_seed(0))
+    visual = init_weights(VisualFeatures(config.ResNetConfig(stage_sizes=(1, 1, 1, 1),
+                                                             dtype="float32")),
+                          torch.Generator().manual_seed(1))
+    checkpoints.CheckpointManager(str(tmp_path / "ckpt")).save(
+        "best", TrainState.create(model, visual, optim.AdamW(model, 1e-3)), 1)
+    with open(os.path.join(data, "data", "train.json")) as f:
+        records = [{"text": r["comment"],
+                    "image_list": [os.path.join(data, "images", n) for n in r["list_img"]]}
+                   for r in json.load(f)[:6]]
+    with open(tmp_path / "records.json", "w") as f:
+        json.dump(records, f)
+    rows = {}
+    for device in ("cpu", "cuda"):
+        out = str(tmp_path / f"{device}.jsonl")
+        cuda_lib.reset_launch_counts()
+        cli.main(args + ["--checkpoint", str(tmp_path / "ckpt"), "--input_json",
+                         str(tmp_path / "records.json"), "--batch_size", "4", "--output_file",
+                         out, "--device", device], config_hook=hook)
+        assert dict(cuda_lib.launch_counts) == (
+            {} if device == "cpu" else {"fused_self_attention": 4,
+                                        "fused_self_attention.simt": 4})
+        with open(out) as f:
+            rows[device] = [json.loads(line) for line in f]
+    assert rows["cuda"] == rows["cpu"] and len(rows["cpu"]) == 6
 
 
 # K3.  f32: summation order only.  bf16: both sides round the probabilities

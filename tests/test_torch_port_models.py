@@ -276,7 +276,8 @@ def test_bert_layer_hidden_act(rng, act):
 
 def test_fcmf_use_mde_is_refused_only_where_jax_builds_it(rng):
     """JAX builds the MDE only when `use_mde and alpha < 1`; with alpha >= 1
-    the flag changes nothing, and the port runs and matches."""
+    the flag changes nothing, and the port runs and matches.  The port
+    builds it where JAX does (its parity: test_torch_port_mde.py)."""
     jm, tm = model_cfgs()
     jt, tt = text_cfgs()
     kw = dict(num_imgs=2, num_roi=2, num_patches=4, visual_feat_dim=64,
@@ -293,5 +294,6 @@ def test_fcmf_use_mde_is_refused_only_where_jax_builds_it(rng):
     port.load_state_dict(jax_import.fcmf_state_dict_from_jax(params, 2), strict=True)
     port.eval()
     _close(port(_t(ids), _t(grid), _t(roi), _t(coors), None, _t(attn), _t(added)), want)
-    with pytest.raises(NotImplementedError, match="Denoising"):
-        TFCMF(tcfg.FCMFConfig(model=tm, text=tt, **{**kw, "alpha": 0.7}))
+    assert port.encoder.mde is None
+    assert TFCMF(tcfg.FCMFConfig(model=tm, text=tt, **{**kw, "alpha": 0.7})).encoder.mde \
+        is not None

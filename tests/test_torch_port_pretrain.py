@@ -642,7 +642,6 @@ def test_flag_surface_covers_the_jax_drivers_and_the_card_is_the_default(data, t
 
 
 @pytest.mark.parametrize("flags,reason", [
-    (["--use_mde"], "Denoising Encoder is not ported"),
     (["--mp", "2"], "tensor parallelism is not ported")])
 def test_driver_refuses_what_is_not_ported_with_its_reason(data, tmp_path, flags, reason):
     with pytest.raises(NotImplementedError, match=reason) as err:

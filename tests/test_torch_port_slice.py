@@ -42,7 +42,10 @@ SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attentio
                  "data.vimacsa", "data.loader", "data.synth", "train.metrics", "train.common",
                  "train.feature_cache", "train.disk_feature_cache", "train.checkpoints",
                  "train.finetune", "models.attention", "models.decoder", "models.seq2seq",
-                 "data.iaog", "tools.iaog_labels", "train.generation", "train.pretrain")
+                 "data.iaog", "tools.iaog_labels", "train.generation", "train.pretrain",
+                 "models.mde", "models.aspect_classifier", "tools.classifier_io",
+                 "tools.image_categories", "tools.roi_categories", "inference.pipeline",
+                 "inference.cli")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
@@ -122,3 +125,21 @@ def test_port_imports_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
 
+
+
+def test_chip_smoke_imports_no_jax():
+    """`chip_smoke.py` runs where JAX is not installed: it imports none of
+    JAX and nothing of the JAX package, at any depth of its code."""
+    import ast
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert "macsa_tpu_torch" in {n.split(".")[0] for n in names}
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "flax", "optax", "orbax",
+                                                         "macsa_tpu"))
+    assert not bad, bad

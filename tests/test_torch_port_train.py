@@ -241,13 +241,6 @@ def test_train_step_with_dropout_is_seeded_and_learns(pair):
     assert run(1, 2) != first[:2]
 
 
-def test_train_state_does_not_train_the_cnn_yet(pair):
-    port = _port_model(pair[2])
-    with pytest.raises(NotImplementedError):
-        TrainState.create(port, pair[5], torch.optim.SGD(port.parameters(), lr=1.0),
-                          fine_tune_cnn=True)
-
-
 def test_cached_features_match_jax(pair, rng):
     """A batch carrying `grid`/`roi` features skips the ResNet, as the JAX
     forward does for its frozen-CNN feature cache."""
