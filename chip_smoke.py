@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: serving path, train steps of both
 phases, decode, the two drivers from files (Phase 1, then Phase 2 on its
-encoder), the trainable CNN, the offline labelers, the MDE and the inference CLI.
+encoder), the trainable CNN, the offline labelers, the MDE, the inference CLI,
+the CATR captioner and the paper's three baselines.
 
     python3 chip_smoke.py
 
@@ -10,7 +11,8 @@ toolkit (`nvcc`).  It builds the port's kernels from `macsa_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the shapes of the
 paths below (K2 at both phases' batches; K1's forward and backward with
 dropout on and off, bf16 on its tensor-core variant and f32 on its
-CUDA-core variant, also at Phase 1's batches and its eval's; K3,
+CUDA-core variant, also at Phase 1's batches and its eval's, and at
+EF-CapTrRoBERTa's 256 rows, where bf16's backward runs on the CUDA cores; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
 whole identity bottleneck, at all four stages; in bf16 both must run their
@@ -60,7 +62,14 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
   in f32 and bf16 against the plain path), and the inference CLI
   (`inference/cli.py`, f32: batch mode over 16 records at batch 8 and one
   single-sample call, serving the `--fine_tune_cnn` checkpoint with the
-  labelers' taggers, against the plain path on the same tensors),
+  labelers' taggers, against the plain path on the same tensors), the CATR
+  captioner (`tools/generate_captions.py` at v3's architecture, ResNet-101,
+  random weights under the torch-hub names, over the 12 images; teacher-
+  forced logits against the CPU) and the three baselines (mRoBERTa, TomBERT,
+  EF-CapTrRoBERTa at ViSoBERT's width, ResNet-152 over 7 images and 49 ROI
+  crops a review: a gradient and logit check in f32 against the plain path,
+  timed bf16 steps at batch 8, `train/train_baselines.main` for one epoch
+  with dev and test, EF-CapTr on the captions just written),
 * and, at the end, reads the device time of K1's and SDPA's backward,
 and checks that each path went through its kernels.  Each phase prints
 its lines; any failure raises and the exit code is not 0.  The
@@ -77,11 +86,13 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -2087,6 +2098,346 @@ def phase_serve(card, cuda_lib, cli, fcmf, steps, data, ft_out, taggers, work):
     return launches
 
 
+def phase_k1_baseline_shapes(dev, cuda_lib, fa) -> dict:
+    """K1's forward and backward against their plain versions at the
+    baselines' shapes: EF-CapTrRoBERTa's [48, 256, 768] (`--max_cap_length
+    256`: bf16's forward on the tensor cores, its backward, past 192 rows,
+    on the CUDA cores), f32 and bf16, rates 0 and 0.1, with the tolerances
+    of phases k1 and k1_bwd; each timed beside its bound, its plain version
+    and SDPA (the forward) or SDPA's backward through autograd (rate 0).
+    -> {"out", "grad": worst absolute errors, (dtype, rate): times}."""
+    b, l, h, d, seed = BATCH * NUM_ASPECTS, 256, 12, 64, 11
+    fwd_tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of max|ref|
+    g = torch.Generator(dev).manual_seed(29)
+    lens = torch.randint(24, l + 1, (b,), device=dev, generator=g)
+    lens[:8] = l
+    mask = torch.zeros(b, l, device=dev).masked_fill(
+        torch.arange(l, device=dev)[None, :] >= lens[:, None], torch.finfo(torch.float32).min)
+    q, k, v, gout = (torch.randn(b, l, h * d, device=dev, generator=g) for _ in range(4))
+    report = {"out": 0.0, "grad": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, gout))
+        fwd_v, bwd_v = fa.attention_variant(dtype, d, l), fa.attention_variant(dtype, d, l, True)
+        if (fwd_v, bwd_v) != (K1_VARIANT[dtype], "simt"):
+            raise AssertionError(f"K1 [{b},{l},{h * d}] {dtype}: variants {fwd_v}, {bwd_v}")
+        for rate in (0.0, 0.1):
+            leaves = [x.clone().requires_grad_(True) for x in (qc, kc, vc)]
+            cuda_lib.reset_launch_counts()
+            out = fa.fused_self_attention(*leaves, mask, h, rate, seed)
+            grads = torch.autograd.grad(out, leaves, gc)
+            expect_counts(cuda_lib, {"fused_self_attention": 1,
+                                     f"fused_self_attention.{fwd_v}": 1,
+                                     "fused_self_attention_bwd": 1,
+                                     f"fused_self_attention_bwd.{bwd_v}": 1},
+                          f"K1 [{b},{l},{h * d}] {dtype} rate {rate}")
+            wants = (fa.attention_reference(qc, kc, vc, mask, h, rate, seed),
+                     *fa.attention_backward_reference(qc, kc, vc, mask, gc, h, rate, seed))
+            errs = {}
+            for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), wants):
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / want.float().abs().max().item()
+                tol_ok = (err <= fwd_tol[dtype] if (name, rate) == ("out", 0.0)
+                          else rel <= bwd_tol[dtype])
+                if not tol_ok:
+                    raise AssertionError(f"K1 {name} [{b},{l},{h * d}] {dtype} rate {rate}: "
+                                         f"error {err} ({rel} of max|ref|)")
+                errs[name] = err if (name, rate) == ("out", 0.0) else rel
+                key = "out" if name == "out" else "grad"
+                report[key] = max(report[key], err)
+            fwd = functools.partial(fa.fused_self_attention, qc, kc, vc, mask, h, rate, seed)
+            lse = fa._launch_fwd(qc, kc, vc, mask, h, rate, seed, with_lse=True)[1]
+            bwd = functools.partial(fa._launch_bwd, qc, kc, vc, mask, lse, gc, h, rate, seed)
+            times = {"fwd_ms": cuda_ms(fwd, iters=50), "bwd_ms": cuda_ms(bwd, iters=50, warmup=5),
+                     "fwd_plain_ms": cuda_ms(lambda: fa.attention_reference(
+                         qc, kc, vc, mask, h, rate, seed), iters=5),
+                     "bwd_plain_ms": cuda_ms(lambda: fa.attention_backward_reference(
+                         qc, kc, vc, mask, gc, h, rate, seed), iters=5),
+                     "fwd_variant": fwd_v, "bwd_variant": bwd_v,
+                     "fwd_bound": attention_bound(b, l, h, d, dtype, backward=False),
+                     "bwd_bound": attention_bound(b, l, h, d, dtype, backward=True),
+                     "fwd_library_ms": None, "bwd_library_ms": None}
+            if rate == 0.0:  # SDPA's own dropout draws another mask
+                q4, k4, v4, m4 = sdpa_inputs(qc, kc, vc, mask, h)
+                times["fwd_library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4), iters=50)
+                q4, k4, v4, m4 = sdpa_inputs(*leaves, mask, h)
+                lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
+                g4 = sdpa_inputs(gc, gc, gc, mask, h)[0]
+                times["bwd_library_ms"] = cuda_ms(functools.partial(
+                    torch.autograd.grad, lib, leaves, g4, retain_graph=True), iters=50, warmup=5)
+            report[(dtype, rate)] = times
+            lib_text = lambda key: ("none" if times[key] is None else f"{times[key]:.4f}")
+            print(f"phase k1 {str(dtype)[6:]} EF-CapTr shape [{b},{l},{h * d}] h={h} mask "
+                  f"finfo.min rate {rate}: errors "
+                  + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
+                  + f" (out at rate 0 absolute, atol {fwd_tol[dtype]}; else of max|ref|, tol "
+                  f"{bwd_tol[dtype]}); fwd ({fwd_v}) kernel_ms={times['fwd_ms']:.4f} "
+                  f"plain_ms={times['fwd_plain_ms']:.4f} library_ms={lib_text('fwd_library_ms')}"
+                  f" (SDPA) {bound_text(times['fwd_bound'])}; bwd ({bwd_v}) "
+                  f"kernel_ms={times['bwd_ms']:.4f} plain_ms={times['bwd_plain_ms']:.4f} "
+                  f"library_ms={lib_text('bwd_library_ms')} (SDPA backward through autograd) "
+                  f"{bound_text(times['bwd_bound'])}")
+            del leaves, out, grads, wants, lse
+    cuda_lib.reset_launch_counts()
+    return report
+
+
+# the baselines' text rows (train_baselines.py: --max_seq_length, --max_cap_length)
+BASELINE_ROWS = {"mroberta": 170, "tomroberta": 170, "efcap": 256}
+BASELINE_TARGET, BASELINE_ROIS, BASELINE_STEPS = 16, 7, 3  # TomBERT's target; 7 x 7 ROIs
+
+
+def baseline_batch(dev, name: str, b: int) -> dict:
+    """Loader-shaped batch of `b` reviews x 6 aspects for baseline `name`,
+    made on the card from a seed: token views at the model's rows (TomBERT's
+    16-token targets beside), and for mRoBERTa and TomBERT host-normalized
+    f32 frames of 7 images and 7 x 7 ROI crops, as their datasets ship them."""
+    g = torch.Generator(dev).manual_seed(43)
+    a = NUM_ASPECTS
+
+    def views(l, shortest):
+        lens = torch.randint(shortest, l + 1, (b, a), device=dev, generator=g)
+        lens[0] = l
+        pad = torch.arange(l, device=dev) >= lens[..., None]
+        ids = torch.randint(3, 15004, (b, a, l), device=dev, generator=g)
+        return ids.masked_fill(pad, 1).to(torch.int32), (~pad).to(torch.int32)
+
+    batch = dict(zip(("input_ids", "attention_mask"), views(BASELINE_ROWS[name], 24)))
+    batch["labels"] = torch.randint(0, 4, (b, a), device=dev, generator=g)
+    if name != "efcap":
+        batch["images"] = torch.randn(b, 7, 224, 224, 3, device=dev, generator=g)
+        batch["roi_images"] = torch.randn(b, 7, BASELINE_ROIS, 224, 224, 3, device=dev,
+                                          generator=g)
+    if name == "tomroberta":
+        batch["target_ids"], batch["target_mask"] = views(BASELINE_TARGET, 2)
+    return batch
+
+
+def build_baseline(dev, name: str, dtype: str, fused: bool, dropout: float):
+    """(model, ResNet-152 or None) of baseline `name` at ViSoBERT's geometry
+    (12 layers x 768, vocab 15004), random weights from a seed."""
+    from macsa_tpu_torch import config
+    from macsa_tpu_torch.models import baselines, layers, resnet
+    kw = dict(dtype=dtype, fused_attention=fused, hidden_dropout_prob=dropout,
+              attention_probs_dropout_prob=dropout)
+    model = baselines.build_baseline(name, config.TextEncoderConfig(**kw), device=dev)
+    layers.init_weights(model, torch.Generator(dev).manual_seed(44), 0.02)
+    visual = None
+    if name != "efcap":
+        visual = resnet.VisualFeatures(config.ResNetConfig(dtype=dtype), device=dev)
+        layers.init_weights(visual, torch.Generator(dev).manual_seed(45))
+    return model, visual
+
+
+def phase_baselines(dev, card, cuda_lib, data, captions, work) -> dict:
+    """The paper's three baselines at full width (ViSoBERT geometry, 12 x
+    768; L = 170, TomBERT's target 16, EF-CapTr 256; ResNet-152 over 7
+    images and 49 ROI crops a review; random weights from a seed).  For
+    each of mroberta, tomroberta and efcap: (1) one step's loss and
+    gradients at dropout 0, f32 with TF32 off, batch 2, through the kernels
+    against the plain path; (2) eval logits at batch 8, f32, kernels against
+    plain (atol 1e-3, predictions equal); (3) 1 + 3 timed bf16 train steps
+    at batch 8 (dropout 0.1, the driver's AdamW 2e-5, wd 0.01, clip 1.0):
+    wall, host issue and CUDA-event time, peak memory, then one step under
+    `torch.profiler` (the card's activity only), K1 12 and K1b 12 launches
+    asserted a step (EF-CapTr's K1b on the CUDA cores), no K2; (4)
+    `train_baselines.main` for one epoch with dev and test on the synthetic
+    files (`efcap` with the captions of phase captions).  -> launches."""
+    from macsa_tpu_torch.train import baseline_steps, optim, state as train_state
+    from macsa_tpu_torch.train import train_baselines
+    from macsa_tpu_torch.train.steps import aspect_loss
+    launches = {}
+    for name in ("mroberta", "tomroberta", "efcap"):
+        # (1) gradients and (2) eval logits: kernels against the plain path, f32
+        model, visual = build_baseline(dev, name, "float32", True, 0.0)
+        plain, _ = build_baseline(dev, name, "float32", False, 0.0)
+        plain.load_state_dict(model.state_dict(), strict=True)
+        batch = baseline_batch(dev, name, BATCH)
+        small = {k: v[:2] for k, v in batch.items()}
+        model.train()
+        plain.train()
+        losses = []
+        for m in (model, plain):
+            loss, _ = aspect_loss(baseline_steps.baseline_forward(m, visual, small),
+                                  small["labels"])
+            loss.backward()
+            losses.append(loss.item())
+        loss_err = abs(losses[0] - losses[1])
+        if not loss_err <= 1e-5:
+            raise AssertionError(f"baseline {name} f32 loss kernels {losses[0]} vs plain "
+                                 f"{losses[1]}")
+        worst = grad_gap(model, plain, f"baseline {name} gradients kernels vs plain", 1e-3)
+        preds, logits = baseline_steps.make_baseline_eval_step(model, visual)(batch)
+        want_preds, want = baseline_steps.make_baseline_eval_step(plain, visual)(batch)
+        torch.cuda.synchronize()
+        logit_err = (logits - want).abs().max().item()
+        if not logit_err <= 1e-3 or not torch.equal(preds, want_preds):
+            raise AssertionError(f"baseline {name} eval f32: logits {logit_err} from the plain "
+                                 f"path's, predictions equal {torch.equal(preds, want_preds)}")
+        print(f"phase baselines {name} f32 dropout 0: batch-2 step loss kernels "
+              f"{losses[0]:.6f} vs plain {losses[1]:.6f} (|diff| {loss_err:.3g}, tol 1e-5), "
+              f"gradients within 1e-3 of each one's largest, worst {worst[0]} at "
+              f"{worst[1]:.3g}; batch-8 eval logits max |diff| {logit_err:.3g} (atol 1e-3), "
+              f"predictions equal")
+        weights = model.state_dict()
+        del model, plain, visual, preds, logits, want_preds, want, small
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (3) the main path: every count from 0, read right after
+        model, visual = build_baseline(dev, name, "bfloat16", True, 0.1)
+        model.load_state_dict(weights, strict=True)
+        opt = optim.AdamW(model, optim.linear_warmup_schedule(2e-5, 1, 1000),
+                          weight_decay=0.01, max_grad_norm=1.0)
+        state = train_state.TrainState.create(
+            model, visual if visual is not None else torch.nn.Module(), opt)
+        step = baseline_steps.make_baseline_train_step(state)
+        cuda_lib.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [step(batch, seed=0)["loss"]]  # untimed: first launch of everything
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(BASELINE_STEPS):
+            losses.append(step(batch, seed=0)["loss"])
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3 / BASELINE_STEPS
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / BASELINE_STEPS
+        event_ms = start.elapsed_time(end) / BASELINE_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        rows = device_profile(lambda: losses.append(step(batch, seed=0)["loss"]), iters=1,
+                              warmup=0, host_too=False)
+        got = dict(cuda_lib.launch_counts)
+        n = BASELINE_STEPS + 2  # the untimed, the timed and the profiled steps
+        bwd_v = "simt" if name == "efcap" else "wgmma"
+        want = {"fused_self_attention": 12 * n, "fused_self_attention.wgmma": 12 * n,
+                "fused_self_attention_bwd": 12 * n, f"fused_self_attention_bwd.{bwd_v}": 12 * n}
+        losses = [x.item() for x in losses]
+        if got != want or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"baseline {name} bf16 steps: launches {got} (want {want}; "
+                                 f"no K2: host-normalized frames), losses {losses}")
+        k1b = [(us, calls) for us, calls, kname in rows if "attention_bwd" in kname]
+        k1 = [(us, calls) for us, calls, kname in rows if "attention_fwd" in kname]
+        device = sum(r[0] for r in rows) / 1e3
+        rows_text = ", ".join(f"{us / 1e3:.3f} x{calls} {kname[:60]}"
+                              for us, calls, kname in rows[:6])
+        print(f"phase baselines {name} bf16 batch {BATCH} (L {BASELINE_ROWS[name]}, "
+              f"{BATCH * (7 + 7 * BASELINE_ROIS) if visual is not None else 0} frames through "
+              f"ResNet-152): {wall_ms:.2f} ms/step wall, host issue {issue_ms:.2f}, CUDA events "
+              f"{event_ms:.2f} over {BASELINE_STEPS} steps after one untimed; peak "
+              f"{peak / 2**30:.2f} GiB; one step under torch.profiler: {device:.2f} ms of device "
+              f"time in {sum(r[1] for r in rows)} kernels, K1 forward {sum(u for u, _ in k1) / 1e3:.3f}"
+              f" ms, K1 backward ({bwd_v}) {sum(u for u, _ in k1b) / 1e3:.3f} ms in "
+              f"{sum(c for _, c in k1b)} kernels ({sum(u for u, _ in k1b) / 12e3:.3f} ms a launch); "
+              f"largest: {rows_text}; launches {got}; losses "
+              + " ".join(f"{x:.4f}" for x in losses) + f"; on {card}")
+        for key, count in got.items():
+            launches[key] = launches.get(key, 0) + count
+        del model, visual, opt, state, step, batch, weights
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (4) the driver from files, its defaults (bf16, batch 8, 7 images, 7 ROIs)
+        out = os.path.join(work, f"baseline_{name}")
+        before = dict(cuda_lib.launch_counts)
+        t0 = time.perf_counter()
+        result = train_baselines.main(
+            ["--model", name, "--data_dir", os.path.join(data, "data"), "--image_dir",
+             os.path.join(data, "images"), "--output_dir", out, "--pretrained_hf_model",
+             os.path.join(data, "tok"), "--seed", "0", "--log_every", "1", "--do_train",
+             "--do_eval", "--do_test", "--num_train_epochs", "1"]
+            + (["--caption_file", captions] if name == "efcap" else []))
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        (epoch,) = result["epochs"]
+        k = SERVE_RECORDS // BATCH
+        want = {"fused_self_attention": 12 * k, "fused_self_attention.wgmma": 12 * k,
+                "fused_self_attention_bwd": 12 * k, f"fused_self_attention_bwd.{bwd_v}": 12 * k}
+        files = ("last.pt", "train.log", "metrics.jsonl", f"test_results_{name}.txt",
+                 "test_predictions_formatted.txt")
+        missing = [f for f in files if not os.path.isfile(os.path.join(out, f))]
+        if epoch["steps"] != k or epoch["kernel_launches"] != want or missing or \
+                not all(math.isfinite(x) for x in epoch["losses"]):
+            raise AssertionError(f"baseline {name} driver: epoch {epoch} (want launches "
+                                 f"{want}), missing {missing}")
+        for key, count in cuda_lib.launch_counts.items():
+            launches[key] = launches.get(key, 0) + count - before.get(key, 0)
+        print(f"phase baselines {name} driver: train_baselines.main, 1 epoch of {k} steps at "
+              f"batch {BATCH}, dev and test, {main_s:.1f} s with model build and checkpoints; "
+              f"{epoch['samples'] / epoch['seconds']:.2f} samples/s, loader wait "
+              f"{epoch['loader_wait_seconds'] / epoch['seconds']:.3f} of the epoch; losses "
+              + " ".join(f"{x:.4f}" for x in epoch["losses"])
+              + f"; test macro-F1 {result['test']['average']['f1']:.4f}; launches "
+              f"{epoch['kernel_launches']}")
+        shutil.rmtree(out)  # ~3 GB of checkpoints at full width
+    return launches
+
+
+def phase_captions(dev, card, data, work) -> str:
+    """The CATR captioner behind `tools/generate_captions.py` at v3's full
+    architecture (ResNet-101 in f32, d 256, 8 heads, 6 + 6 layers, FFN 2048,
+    vocab 30522, 128 positions), a seeded random state dict under the
+    torch-hub checkpoint's names and a generated 30522-entry `vocab.txt`
+    ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103): the tool over
+    the synthetic dataset's 12 images at batch 8, then teacher-forced logits
+    of 2 images on the card against the port on the CPU (within 1e-3 of
+    max|ref|).  -> the captions JSON, for the efcap driver."""
+    from macsa_tpu_torch.models import catr
+    from macsa_tpu_torch.tools import generate_captions
+    cfg = catr.CATRConfig()
+    checkpoint = os.path.join(work, "catr.pth")
+    sd = catr.random_state_dict(cfg, torch.Generator(dev).manual_seed(51))
+    torch.save({k: v.cpu() for k, v in sd.items()}, checkpoint)
+    del sd
+    vocab_dir = os.path.join(work, "bert")
+    os.makedirs(vocab_dir, exist_ok=True)
+    words = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"])
+    words += [f"##p{i}" if i % 3 == 2 else f"w{i}" for i in range(cfg.vocab_size - len(words))]
+    with open(os.path.join(vocab_dir, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(words) + "\n")
+    images = os.path.join(data, "images")
+    out = os.path.join(work, "captions.json")
+    t0 = time.perf_counter()
+    result = generate_captions.main(["--image_dir", images, "--output_file", out,
+                                     "--catr_checkpoint", checkpoint, "--bert_tokenizer",
+                                     vocab_dir, "--batch_size", str(BATCH)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    names = sorted(os.listdir(images))
+    if list(result) != names or not all(isinstance(c, str) for c in result.values()):
+        raise AssertionError(f"captions: {len(result)} for {len(names)} images")
+
+    # teacher forcing on 2 images: the card against the CPU, the same tokens
+    pixels = torch.from_numpy(np.stack([generate_captions.square_pad_resize(
+        os.path.join(images, n)) for n in names[:2]]))
+    model = generate_captions.load_catr(checkpoint, dev)
+    t1 = time.perf_counter()
+    tokens = catr.greedy_decode(model, pixels.to(dev))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    with torch.inference_mode():
+        got = model(pixels.to(dev), tokens).cpu()
+    del model
+    cpu_model = generate_captions.load_catr(checkpoint, torch.device("cpu"))
+    with torch.inference_mode():
+        want = cpu_model(pixels, tokens.cpu())
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not rel <= 1e-3:
+        raise AssertionError(f"CATR teacher-forced logits card vs CPU: {rel} of max|ref|")
+    lengths = [len(c.split()) for c in result.values()]
+    print(f"phase captions: generate_captions.main --catr_checkpoint (v3 architecture, "
+          f"random weights) over {len(result)} images at batch {BATCH}: {seconds:.2f} s, "
+          f"model load included; a greedy decode of 2 images {decode_s:.2f} s ({tokens.shape[1]} "
+          f"positions); caption words {min(lengths)}-{max(lengths)}, e.g. "
+          f"{next(iter(result.values()))[:60]!r}; teacher-forced logits card vs CPU "
+          f"{rel:.3g} of max|ref| (tol 1e-3); on {card}")
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     from macsa_tpu_torch import config
@@ -2135,6 +2486,7 @@ def main() -> int:
     k1 = run(phase_k1, dev, cuda_lib, fa)
     k1_bwd = run(phase_k1_bwd, dev, cuda_lib, fa)
     k1_phase1 = run(phase_k1_phase1_shapes, dev, cuda_lib, fa)
+    k1_baselines = run(phase_k1_baseline_shapes, dev, cuda_lib, fa)
     k3 = run(phase_k3, dev, ba, cuda_lib)
     k4, k4_launches = run(phase_k4, dev, cuda_lib, fr)
     k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
@@ -2158,6 +2510,8 @@ def main() -> int:
         mde_launches = run(phase_mde, dev, smi, cuda_lib, *model_mods)
         serve_launches = run(phase_serve, smi, cuda_lib, cli, fcmf, steps, data, ft_out,
                              taggers, work)
+        captions = run(phase_captions, dev, smi, data, work)
+        baseline_launches = run(phase_baselines, dev, smi, cuda_lib, data, captions, work)
     run(phase_k1_bwd_device, k1_bwd)
 
     def entry(name, source, replaces, launched, err, timed):
@@ -2176,16 +2530,26 @@ def main() -> int:
     bf16 = torch.bfloat16
     k1_bwd0 = k1_bwd[("-10000", bf16, 0.0)]  # rate 0: the case SDPA's backward is timed at
     k1_err = max([r["err"] for r in k1.values()] + [r["err"]["out"] for r in k1_bwd.values()]
-                 + [k1_phase1["out"]])
+                 + [k1_phase1["out"], k1_baselines["out"]])
     k1b_err = max([max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values()]
-                  + [k1_phase1["grad"]])
+                  + [k1_phase1["grad"], k1_baselines["grad"]])
     phase1 = (step_launches, decode_launches, pretrain_launches)
-    this_slice = (ft_cnn_launches, mde_launches, serve_launches)
+    later = (ft_cnn_launches, mde_launches, serve_launches, baseline_launches)
 
     def later_launches(name):
-        """Launches on Phase 1's paths, and on the fine_tune_cnn, mde and
-        serve phases'."""
-        return sum(path.get(name, 0) for path in phase1 + this_slice)
+        """Launches on Phase 1's paths, and on the fine_tune_cnn, mde,
+        serve and baselines phases'."""
+        return sum(path.get(name, 0) for path in phase1 + later)
+
+    def at_256(which: str) -> dict:
+        """K1's (`fwd`) or K1b's (`bwd`) bf16 times at EF-CapTr's [48, 256,
+        768], rate 0: the variant it ran, its time, plain, bound, SDPA's."""
+        t = k1_baselines[(bf16, 0.0)]
+        return {"shape": [BATCH * NUM_ASPECTS, 256, 768], "variant": t[f"{which}_variant"],
+                "ms": t[f"{which}_ms"], "plain_ms": t[f"{which}_plain_ms"],
+                "bound_ms": t[f"{which}_bound"]["bound_ms"],
+                "bound_by": t[f"{which}_bound"]["bound_by"],
+                "library_ms": t[f"{which}_library_ms"]}
     k4_conv1 = next(r for (name, dt), r in k4.items() if name.startswith("conv1") and dt == bf16)
     kernels = [
         entry("fused_self_attention", "fused_attention_wgmma.cu",
@@ -2213,6 +2577,7 @@ def main() -> int:
               "tools_dev/fused_resnet_experiment.py:208", fused_launches["fused_bottleneck"],
               max(r["err"] for r in k5.values()), k5[(3, bf16)]),
     ]
+    kernels[0]["at_256_rows"], kernels[1]["at_256_rows"] = at_256("fwd"), at_256("bwd")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -131,6 +131,61 @@ def resize_u8(img: np.ndarray, size: int = IMAGE_SIZE) -> np.ndarray:
     return np.asarray(pil.resize((size, size), Image.BILINEAR), np.uint8)
 
 
+_PIL_PRECISION_BITS = 22  # Pillow's Resample.c: 32 - 8 - 2
+
+
+def _pil_bilinear_taps(in_size: int, out_size: int) -> tuple:
+    """(first input index [out], fixed-point weights [out, taps]) of
+    Pillow's BILINEAR resample along one axis, as `precompute_coeffs` and
+    `normalize_coeffs_8bpc` compute them: the same float64 operations in
+    the same order, then rounded to 22 fractional bits."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the triangle filter's support is 1
+    inv = 1.0 / filterscale
+    centers = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(centers - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(centers + support + 0.5).astype(np.int64), in_size) - xmin
+    taps = int(xmax.max())
+    x = np.arange(taps)
+    w = np.abs((x[None, :] + xmin[:, None] - centers[:, None] + 0.5) * inv)
+    w = np.where((x[None, :] < xmax[:, None]) & (w < 1.0), 1.0 - w, 0.0)
+    total = np.zeros(out_size)
+    for t in range(taps):  # left to right, as the C loop sums
+        total += w[:, t]
+    w = np.divide(w, total[:, None], out=w, where=total[:, None] != 0.0)
+    fixed = np.trunc(0.5 + w * (1 << _PIL_PRECISION_BITS)).astype(np.int64)  # w >= 0
+    return xmin, fixed
+
+
+def _pil_pass(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One 8-bit pass of Pillow's resample along `axis` (0 rows, 1 columns)."""
+    xmin, fixed = _pil_bilinear_taps(img.shape[axis], out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PIL_PRECISION_BITS - 1), np.int64)
+    last = src.shape[0] - 1
+    for t in range(fixed.shape[1]):  # a weight past a row's taps is 0
+        tap = fixed[:, t].reshape((-1,) + (1,) * (src.ndim - 1))
+        acc += src[np.minimum(xmin + t, last)] * tap
+    out = np.clip(acc >> _PIL_PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_u8_pil(img: np.ndarray, size: int) -> np.ndarray:
+    """uint8 HWC -> uint8 [size, size, 3], byte for byte PIL's
+    `Image.resize((size, size), Image.BILINEAR)` on an RGB image.  The
+    filter is `resize_u8`'s, but Pillow sums in fixed point and rounds to
+    uint8 between its horizontal and vertical passes, so `resize_u8` lands
+    within +-2 of it and this does not.  For the caption tool, whose
+    reference resizes with PIL."""
+    out = img
+    if img.shape[1] != size:
+        out = _pil_pass(out, 1, size)
+    if img.shape[0] != size:
+        out = _pil_pass(out, 0, size)
+    return out
+
+
 def resize_normalize(img: np.ndarray, size: int = IMAGE_SIZE) -> np.ndarray:
     """uint8 HWC -> normalized float32 [size, size, 3] (fused native kernel
     when available; the fallback mirrors its math — multiply by the f32

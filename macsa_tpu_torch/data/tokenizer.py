@@ -37,11 +37,31 @@ def _token_text(entry) -> Optional[str]:
     return entry
 
 
+def longest_first_lengths(n_a: int, n_b: int, max_length: int) -> Tuple[int, int]:
+    """The lengths a pair of n_a and n_b tokens is cut to under HF's
+    `longest_first` truncation, `max_length` counting the two sequences
+    alone (the template's tokens already taken off), as the `tokenizers`
+    library splits it (`truncate_encodings`, utils/truncation.rs): the
+    shorter side n1 keeps what it has, the longer gets max(n1, max_length -
+    n1); if the two still overflow, each gets half, the longer side the odd
+    token (the second one when both are as long)."""
+    if n_a + n_b <= max_length:
+        return n_a, n_b
+    swap = n_a > n_b
+    n1, n2 = (n_b, n_a) if swap else (n_a, n_b)
+    n2 = n1 if n1 > max_length else max(n1, max_length - n1)
+    if n1 + n2 > max_length:
+        n1 = max_length // 2
+        n2 = n1 + max_length % 2
+    return (n2, n1) if swap else (n1, n2)
+
+
 class WordLevelTokenizer:
     """The subset of a HF fast tokenizer the datasets and the generation
     harness use: `__call__` on a text, a text pair or a list of texts with
-    `max_length`, `truncation` (False, "only_first", or True on single
-    texts), `padding` (False or "max_length") and `return_token_type_ids`;
+    `max_length`, `truncation` (False, "only_first", "longest_first" or
+    True, which is HF's "longest_first"), `padding` (False or "max_length")
+    and `return_token_type_ids`;
     `decode`; `pad_token_id` and the other special tokens' ids (`None`
     where `tokenizer_config.json` names none); `__len__`."""
 
@@ -152,10 +172,16 @@ class WordLevelTokenizer:
             rows = [self(t, None, max_length, truncation, padding, return_token_type_ids)
                     for t in text]
             return {k: [row[k] for row in rows] for k in rows[0]} if rows else {}
-        if truncation is True and text_pair is None:
-            truncation = "only_first"  # one sequence: the two strategies are one
-        if truncation not in (False, "only_first") or padding not in (False, "max_length"):
+        if not text_pair:
+            text_pair = None  # HF encodes an empty pair as one sequence
+        if truncation is True:
+            # HF's `True`; on one sequence the strategies are one
+            truncation = "longest_first" if text_pair is not None else "only_first"
+        if truncation not in (False, "only_first", "longest_first") \
+                or padding not in (False, "max_length"):
             raise ValueError(f"truncation={truncation!r}, padding={padding!r}: not offered")
+        if truncation == "longest_first" and text_pair is None:
+            truncation = "only_first"
         seqs = {"$A": self.tokenize(text)}
         if text_pair is not None:
             seqs["$B"] = self.tokenize(text_pair)
@@ -163,7 +189,14 @@ class WordLevelTokenizer:
         if truncation and max_length is not None:
             added = sum(1 for tok, _ in template if not tok.startswith("$"))
             over = added + sum(map(len, seqs.values())) - max_length
-            if over > 0:
+            if over > 0 and truncation == "longest_first":
+                if max_length < added:
+                    raise ValueError(f"truncation to {max_length}: the template alone has "
+                                     f"{added} tokens")
+                n_a, n_b = longest_first_lengths(len(seqs["$A"]), len(seqs["$B"]),
+                                                 max_length - added)
+                seqs = {"$A": seqs["$A"][:n_a], "$B": seqs["$B"][:n_b]}
+            elif over > 0:
                 if over >= len(seqs["$A"]):
                     raise ValueError(f"truncation to {max_length}: the first sequence has "
                                      f"{len(seqs['$A'])} tokens and {over} must go")
@@ -184,6 +217,48 @@ class WordLevelTokenizer:
         if return_token_type_ids:
             out["token_type_ids"] = types
         return out
+
+
+# `transformers.BertTokenizer`'s special tokens, by its defaults
+_BERT_SPECIALS = ("[UNK]", "[SEP]", "[PAD]", "[CLS]", "[MASK]")
+# `PreTrainedTokenizerBase.clean_up_tokenization`, in its order
+_CLEAN_UP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+             (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re"))
+
+
+class WordPieceDecoder:
+    """`transformers.BertTokenizer.decode` over a `vocab.txt` (one token a
+    line, its id the line's index) with the constructor's defaults, for the
+    caption tool on a machine without `transformers`: ids that name a
+    special token are dropped when asked (`[UNK]` is one), the rest are
+    joined by spaces with the `##` pieces merged, and the spaces before
+    punctuation and contractions are cleaned up
+    (`clean_up_tokenization_spaces=True`)."""
+
+    def __init__(self, vocab: Dict[str, int]):
+        self.vocab = dict(vocab)
+        # as `BertTokenizer.ids_to_tokens`: a token listed twice keeps its last id
+        self._tokens = {i: tok for tok, i in self.vocab.items()}
+        unk_id = self.vocab.get("[UNK]")
+        self._special_ids = {self.vocab.get(tok, unk_id) for tok in _BERT_SPECIALS}
+
+    @classmethod
+    def from_dir(cls, path: str) -> "WordPieceDecoder":
+        with open(os.path.join(path, "vocab.txt"), encoding="utf-8") as f:
+            return cls({line.rstrip("\n"): index for index, line in enumerate(f)})
+
+    def __len__(self) -> int:
+        return len(self.vocab)
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        tokens = [self._tokens.get(int(i), "[UNK]") for i in ids
+                  if not (skip_special_tokens and int(i) in self._special_ids)]
+        if skip_special_tokens:
+            tokens = [t for t in tokens if t not in _BERT_SPECIALS]
+        text = " ".join(tokens).replace(" ##", "").strip()
+        for before, after in _CLEAN_UP:
+            text = text.replace(before, after)
+        return text
 
 
 def load_tokenizer(pretrained_path: str):

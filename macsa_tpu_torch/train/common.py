@@ -192,9 +192,10 @@ def build_text_config(pretrained_path: Optional[str], dtype: str = "bfloat16",
 
 
 def import_text_params(model, pretrained_path: Optional[str], logger=None,
-                       resize_vocab_to: Optional[int] = None) -> bool:
+                       resize_vocab_to: Optional[int] = None, cell=None) -> bool:
     """Load HF backbone weights (`pytorch_model.bin` under `pretrained_path`)
-    into `model.encoder.bert.cell` in place.  The random init is kept, with a
+    into `cell` in place, by default `model.encoder.bert.cell` (the FCMF's;
+    a baseline passes its `roberta`).  The random init is kept, with a
     warning, when no weight file exists.  -> whether weights were loaded.
 
     `resize_vocab_to` resizes the file's word-embedding table first
@@ -206,7 +207,7 @@ def import_text_params(model, pretrained_path: Optional[str], logger=None,
             logger.warning(f"no HF weights under {pretrained_path} (no pytorch_model.bin); "
                            "keeping random init")
         return False
-    cell = model.encoder.bert.cell
+    cell = model.encoder.bert.cell if cell is None else cell
     wanted = set(cell.state_dict())
     sd = {}
     for key, value in torch.load(bin_path, map_location="cpu", weights_only=True).items():

@@ -229,6 +229,92 @@ def aspect_classifier_state_dict_from_jax(params) -> StateDict:
     return sd
 
 
+_BASELINE_TOP = {
+    "mroberta": ("roberta", "vis_projection", "roi_projection", "cross_attention",
+                 "norm_cross", "mm_layer_*", "classifier"),
+    "tomroberta": ("roberta", "vis_projection", "roi_projection", "ti_matching_*",
+                   "mm_layer_*", "classifier"),
+    "efcap": ("roberta", "classifier"),
+}
+
+
+def _module_state_dict(p, prefix: str) -> StateDict:
+    """A flax subtree of Dense layers (`kernel`/`bias`) and LayerNorms
+    (`scale`/`bias`) -> the port's names: the tree's keys joined by dots."""
+    if "kernel" in p:
+        return _prefixed(prefix, dense_state_dict(p))
+    if "scale" in p:
+        return _prefixed(prefix, layer_norm_state_dict(p))
+    sd: StateDict = {}
+    for name, sub in p.items():
+        sd.update(_module_state_dict(sub, f"{prefix}.{name}"))
+    return sd
+
+
+def baseline_state_dict_from_jax(params, model: str) -> StateDict:
+    """mRoBERTa / TomBERT / EF-CapTrRoBERTa params (`model` is the driver's
+    `--model` name) -> the port's `models/baselines.py` state dict: the HF
+    RoBERTa names under `roberta.`, the JAX tree's names elsewhere."""
+    if model not in _BASELINE_TOP:
+        raise ValueError(f"unknown baseline {model!r}: one of {tuple(_BASELINE_TOP)}")
+    want = _BASELINE_TOP[model]
+    for name in params:
+        if not any(name == w or (w.endswith("*") and name.startswith(w[:-1])) for w in want):
+            raise ValueError(f"{name!r} is not a module of {model}")
+    missing = [w for w in want if not w.endswith("*") and w not in params]
+    if missing:
+        raise ValueError(f"{model} params lack {missing}")
+    bert = params["roberta"]
+    num_layers = sum(1 for name in bert if name.startswith("layer_"))
+    sd = _prefixed("roberta", text_encoder_state_dict_from_jax(bert, num_layers))
+    for name, sub in params.items():
+        if name != "roberta":
+            sd.update(_module_state_dict(sub, name))
+    return sd
+
+
+def catr_state_dict_from_jax(params) -> StateDict:
+    """CATR params (`{"params": ...}` or the tree under it) -> the torch-hub
+    checkpoint's names, which `models/catr.py` carries (inverse of
+    `macsa_tpu.models.catr.import_torch_catr`): the backbone under
+    `backbone.0.body.` in torchvision layout, `input_proj` as the 1x1 conv
+    it is there, the packed attention projections as they are."""
+    p = params.get("params", params)
+    sd = _prefixed("backbone.0.body", visual_state_dict_from_jax({"backbone": p["backbone"]}))
+    kernel = np.asarray(p["input_proj"]["kernel"])  # [2048, D]
+    sd["input_proj.weight"] = _t(kernel.T[:, :, None, None])
+    sd["input_proj.bias"] = _t(p["input_proj"]["bias"])
+    emb = "transformer.embeddings"
+    sd[f"{emb}.word_embeddings.weight"] = _t(p["word_embeddings"]["embedding"])
+    sd[f"{emb}.position_embeddings.weight"] = _t(p["position_embeddings"]["embedding"])
+    sd.update(_prefixed(f"{emb}.LayerNorm", layer_norm_state_dict(p["embed_norm"])))
+    sd.update(_prefixed("transformer.decoder.norm", layer_norm_state_dict(p["decoder_norm"])))
+    if "encoder_norm" in p:  # pre-norm only (DETR's normalize_before)
+        sd.update(_prefixed("transformer.encoder.norm",
+                            layer_norm_state_dict(p["encoder_norm"])))
+
+    def mha(q, prefix):
+        return {f"{prefix}.in_proj_weight": _t(q["in_proj_weight"]),
+                f"{prefix}.in_proj_bias": _t(q["in_proj_bias"]),
+                **_prefixed(f"{prefix}.out_proj", dense_state_dict(q["out_proj"]))}
+
+    for kind, tree, attns, norms in (("enc", "encoder", ("self_attn",), 2),
+                                     ("dec", "decoder", ("self_attn", "multihead_attn"), 3)):
+        i = 0
+        while f"{kind}_{i}" in p:
+            layer, prefix = p[f"{kind}_{i}"], f"transformer.{tree}.layers.{i}"
+            for name in attns:
+                sd.update(mha(layer[name], f"{prefix}.{name}"))
+            for name in ("linear1", "linear2"):
+                sd.update(_prefixed(f"{prefix}.{name}", dense_state_dict(layer[name])))
+            for n in range(1, norms + 1):
+                sd.update(_prefixed(f"{prefix}.norm{n}", layer_norm_state_dict(layer[f"norm{n}"])))
+            i += 1
+    for i in range(3):
+        sd.update(_prefixed(f"mlp.layers.{i}", dense_state_dict(p[f"mlp_{i}"])))
+    return sd
+
+
 def _np(v) -> np.ndarray:
     if hasattr(v, "detach"):
         v = v.detach().cpu().numpy()

@@ -70,17 +70,24 @@ def fcmf_forward_all_aspects(model: FCMF, visual: VisualFeatures, batch: Batch,
     return logits.reshape(b, a, -1)
 
 
-def finetune_loss(model: FCMF, visual: VisualFeatures, batch: Batch,
-                  rng: Optional[DropoutRng] = None,
-                  fine_tune_cnn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(loss, accuracy) of one batch: CE in f32, mean over the batch per
-    aspect, summed over the aspects; accuracy over all B x A views."""
-    logits = fcmf_forward_all_aspects(model, visual, batch, rng, fine_tune_cnn)
-    labels = batch["labels"].long()
+def aspect_loss(logits: torch.Tensor, labels: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, accuracy) of [B, A, num_labels] logits: CE in f32, mean over
+    the batch per aspect, summed over the aspects; accuracy over all B x A
+    views."""
+    labels = labels.long()
     ce = F.cross_entropy(logits.float().flatten(0, 1), labels.flatten(),
                          reduction="none").reshape(labels.shape)
     acc = (logits.argmax(-1) == labels).float().mean()
     return ce.mean(0).sum(), acc
+
+
+def finetune_loss(model: FCMF, visual: VisualFeatures, batch: Batch,
+                  rng: Optional[DropoutRng] = None,
+                  fine_tune_cnn: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, accuracy) of one batch (`aspect_loss`)."""
+    return aspect_loss(fcmf_forward_all_aspects(model, visual, batch, rng, fine_tune_cnn),
+                       batch["labels"])
 
 
 def make_finetune_train_step(state: TrainState) -> Callable:

@@ -176,7 +176,45 @@ def test_tokenizer_reader_matches_the_hf_fast_tokenizer(synth_dirs):
     with pytest.raises(ValueError, match="must go"):
         mine("a", " ".join(["phòng"] * 60), max_length=48, truncation="only_first")
     with pytest.raises(ValueError, match="not offered"):
-        mine("a", "b", max_length=48, truncation=True)
+        mine("a", "b", max_length=48, truncation="only_second")
+
+
+def test_tokenizer_reader_truncates_pairs_longest_first_as_hf(synth_dirs):
+    """`truncation=True` on a pair is HF's `longest_first`: the `tokenizers`
+    split of max_length between the two sides (the shorter keeps what it
+    has; if both overflow, half each, the odd token to the longer side, to
+    the second when they are as long), over seeded pairs that overflow
+    either side or both, at odd and even lengths."""
+    from transformers import AutoTokenizer
+    tok_dir = os.path.join(synth_dirs[1], "tok")
+    hf = AutoTokenizer.from_pretrained(tok_dir, local_files_only=True)
+    mine = ttokenizer.WordLevelTokenizer.from_dir(tok_dir)
+    words = list(mine.vocab) + ["xyz", "</s></s>", "ồn."]
+    rng = np.random.default_rng(1)
+    seen = set()
+    for _ in range(400):
+        n_a, n_b = (int(n) for n in rng.integers(1, 50, 2))
+        a, b = (" ".join(rng.choice(words, size=n)) for n in (n_a, n_b))
+        max_length = int(rng.integers(6, 60))
+        for truncation in (True, "longest_first"):
+            kw = dict(max_length=max_length, truncation=truncation, padding="max_length")
+            want, got = hf(a, b, **kw), mine(a, b, **kw)
+            assert list(want["input_ids"]) == got["input_ids"], (a, b, max_length)
+            assert list(want["attention_mask"]) == got["attention_mask"]
+        la, lb = len(mine.tokenize(a)), len(mine.tokenize(b))
+        room = max_length - 4  # <s> A </s></s> B </s>
+        if la + lb > room:
+            seen.add(("both" if min(la, lb) > room // 2 else "one", la == lb, room % 2))
+    assert {("both", False, 0), ("both", False, 1), ("one", False, 0),
+            ("one", False, 1)} <= seen
+    assert ttokenizer.longest_first_lengths(9, 9, 7) == (3, 4)  # equal: the odd one second
+    assert ttokenizer.longest_first_lengths(12, 9, 7) == (4, 3)  # to the longer
+    assert ttokenizer.longest_first_lengths(2, 30, 7) == (2, 5)
+    assert ttokenizer.longest_first_lengths(30, 2, 7) == (5, 2)
+    for a, b, m in ((9, 9, 7), (12, 9, 7), (10, 10, 12)):
+        assert hf("phòng " * a, "đẹp " * b, max_length=m + 4, truncation=True)[
+            "input_ids"] == mine("phòng " * a, "đẹp " * b, max_length=m + 4, truncation=True)[
+            "input_ids"]
 
 
 @pytest.mark.parametrize("part,value,named", [

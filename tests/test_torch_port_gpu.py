@@ -679,3 +679,96 @@ def test_fused_backbone_on_gpu_matches_plain(cuda):
         assert feats["f32"][i].shape == want.shape
         assert _rel_err(feats["f32"][i], want) <= 1e-4
         assert _rel_err(feats["bf16"][i], want) <= 2 * _rel_err(feats["plain_bf16"][i], want)
+
+
+# EF-CapTrRoBERTa's 256 rows (`--max_cap_length`): bf16 runs the forward on
+# the tensor cores and, past 192 rows, the backward on the CUDA cores
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_attention_kernels_at_the_efcap_shape(cuda, dtype, tol, rate):
+    g = torch.Generator(cuda).manual_seed(4)
+    b, l, heads, seed = 6, 256, 12, 77
+    q, k, v, gout = (torch.randn(b, l, heads * 64, device=cuda, generator=g).to(dtype)
+                     for _ in range(4))
+    lens = torch.randint(40, l + 1, (b,), device=cuda, generator=g)
+    lens[0] = l
+    mask = torch.zeros(b, l, device=cuda).masked_fill(
+        torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
+    assert fa.attention_variant(dtype, 64, l) == ("wgmma" if dtype == torch.bfloat16
+                                                   else "simt")
+    assert fa.attention_variant(dtype, 64, l, backward=True) == "simt"
+    _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol)
+
+
+def _baseline_and_batch(name, length, dtype="float32"):
+    """A 2-layer baseline at width 128 (head dim 64) on the CPU, a small
+    ResNet, and a batch of 2 reviews x 6 aspects with labels."""
+    from macsa_tpu_torch.models.baselines import build_baseline
+    kw = dict(hidden_size=128, num_hidden_layers=2, num_attention_heads=2,
+              intermediate_size=256, vocab_size=64, max_position_embeddings=300,
+              hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0, dtype=dtype)
+    model = init_weights(build_baseline(name, config.TextEncoderConfig(**kw), 128),
+                         torch.Generator().manual_seed(0), 0.05)
+    visual = init_weights(VisualFeatures(config.ResNetConfig(
+        stage_sizes=(1, 1, 1, 1), num_filters=4, grid_size=2, dtype=dtype)),
+        torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(0)
+    b, a = 2, 6
+
+    def ids(l):
+        mask = (np.arange(l) < rng.integers(4, l + 1, size=(b, a, 1))).astype(np.int32)
+        return np.where(mask == 1, rng.integers(2, 64, size=(b, a, l)), 1).astype(np.int32), mask
+
+    input_ids, attention_mask = ids(length)
+    batch = {"input_ids": input_ids, "attention_mask": attention_mask,
+             "labels": rng.integers(0, 4, size=(b, a)).astype(np.int32)}
+    if name != "efcap":
+        batch["images"] = rng.normal(size=(b, 2, 64, 64, 3)).astype(np.float32)
+        batch["roi_images"] = rng.normal(size=(b, 2, 2, 64, 64, 3)).astype(np.float32)
+    if name == "tomroberta":
+        batch["target_ids"], batch["target_mask"] = ids(16)
+    return model, (visual if name != "efcap" else None), {
+        k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("name,length", [("mroberta", 40), ("tomroberta", 40),
+                                         ("efcap", 256)])
+def test_baseline_kernel_path_matches_plain(cuda, name, length):
+    """Each baseline on the card, f32 with TF32 off, its text encoder through
+    K1 (the same model with `fused_attention` off is the plain path): eval
+    logits, and one step's loss and gradients at dropout 0 (K1's backward;
+    at 256 rows on the CUDA-core variant).  No K2: the frames are
+    host-normalized floats, as the baseline datasets ship them."""
+    import dataclasses as dc
+    from macsa_tpu_torch.train.baseline_steps import baseline_forward, make_baseline_eval_step
+    from macsa_tpu_torch.train.steps import aspect_loss
+    model, visual, batch = _baseline_and_batch(name, length)
+    model, batch = model.to(cuda), {k: v.to(cuda) for k, v in batch.items()}
+    visual = visual.to(cuda) if visual is not None else None
+    results = {}
+    for fused in (False, True):
+        for m in model.modules():
+            if hasattr(m, "config") and hasattr(m.config, "fused_attention"):
+                m.config = dc.replace(m.config, fused_attention=fused)
+        cuda_lib.reset_launch_counts()
+        _, logits = make_baseline_eval_step(model, visual)(batch)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, _ = aspect_loss(baseline_forward(model, visual, batch), batch["labels"])
+        loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+        results[fused] = (logits, loss.item(), grads, dict(cuda_lib.launch_counts))
+    logits, loss, grads, launches = results[True]
+    want_logits, want_loss, want_grads, plain_launches = results[False]
+    # 2 layers, in the eval step and the step's forward (TomBERT's 16-row
+    # target stays plain); f32 runs the CUDA-core variants
+    assert plain_launches == {}
+    assert launches == {"fused_self_attention": 4, "fused_self_attention.simt": 4,
+                        "fused_self_attention_bwd": 2, "fused_self_attention_bwd.simt": 2}
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=1e-4)
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    assert set(grads) == set(want_grads)
+    for n, g in want_grads.items():
+        tol = max(1e-4 * g.abs().max().item(), 1e-7)
+        torch.testing.assert_close(grads[n], g, rtol=0, atol=tol, msg=n)

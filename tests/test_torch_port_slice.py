@@ -45,7 +45,8 @@ SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attentio
                  "data.iaog", "tools.iaog_labels", "train.generation", "train.pretrain",
                  "models.mde", "models.aspect_classifier", "tools.classifier_io",
                  "tools.image_categories", "tools.roi_categories", "inference.pipeline",
-                 "inference.cli")
+                 "inference.cli", "models.baselines", "models.catr", "data.baselines",
+                 "train.baseline_steps", "train.train_baselines", "tools.generate_captions")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
