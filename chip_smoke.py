@@ -79,6 +79,8 @@ JSON verdict.  Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -353,7 +355,10 @@ def phase_k1(dev, cuda_lib, fa):
             err = (got.float() - want.float()).abs().max().item()
             if not err <= atol:
                 raise AssertionError(f"K1 {dtype} mask {neg_name}: max abs err {err} > {atol}")
-            ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h), iters=100)
+            # the kernel's time: its launches back to back; then the same
+            # through the wrapper, whose no-autograd call is the registered op
+            ms = cuda_ms(lambda: fa._launch_fwd(qc, kc, vc, mask, h, 0.0, 0, False), iters=100)
+            call_ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h), iters=100)
             plain_ms = cuda_ms(lambda: fa.attention_reference(qc, kc, vc, mask, h))
             q4, k4, v4, m4 = sdpa_inputs(qc, kc, vc, mask, h)
             lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
@@ -364,11 +369,12 @@ def phase_k1(dev, cuda_lib, fa):
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                                         attn_mask=m4), iters=100)
             bd = attention_bound(b, l, h, d, dtype, backward=False)
-            report[(neg_name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                                         "library_ms": library_ms, **bd}
+            report[(neg_name, dtype)] = {"err": err, "ms": ms, "call_ms": call_ms,
+                                         "plain_ms": plain_ms, "library_ms": library_ms, **bd}
             print(f"phase k1 {str(dtype)[6:]} ({variant}) mask {neg_name} [{b},{l},{h * d}] h={h}: "
-                  f"max_abs_err={err:.3g} (atol {atol}) kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, additive mask) "
+                  f"max_abs_err={err:.3g} (atol {atol}) kernel_ms={ms:.4f} (the op's calls: "
+                  f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA, "
+                  f"additive mask) "
                   f"{bound_text(bd)}")
     return report
 
@@ -426,8 +432,8 @@ def phase_k1_bwd(dev, cuda_lib, fa):
                     if not rel_err[name] <= tol:
                         raise AssertionError(f"K1 {name} {dtype} rate {rate} mask {neg_name}: "
                                              f"error {rel_err[name]} of max|ref| > {tol}")
-                fwd_ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h, rate,
-                                                                 seed), iters=100)
+                fwd_ms = cuda_ms(lambda: fa._launch_fwd(qc, kc, vc, mask, h, rate, seed, False),
+                                 iters=100)
                 fwd_plain = cuda_ms(lambda: fa.attention_reference(qc, kc, vc, mask, h, rate,
                                                                    seed))
                 # the backward as autograd calls it: the wrapper on the saved tensors
@@ -552,7 +558,7 @@ def phase_k1_phase1_shapes(dev, cuda_lib, fa) -> dict:
                                          f"{rels[name]} of max|ref| > {bwd_tol[dtype]}")
                 key = "out" if name == "out" else "grad"
                 worst[key] = max(worst[key], err)
-            ms = cuda_ms(lambda: fa.fused_self_attention(qc, kc, vc, mask, h, 0.1, seed),
+            ms = cuda_ms(lambda: fa._launch_fwd(qc, kc, vc, mask, h, 0.1, seed, False),
                          iters=50)
             lse = fa._launch_fwd(qc, kc, vc, mask, h, 0.1, seed, with_lse=True)[1]
             bwd_ms = cuda_ms(functools.partial(fa._launch_bwd, qc, kc, vc, mask, lse, gc, h, 0.1,
@@ -1025,11 +1031,28 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     return launches, times
 
 
+@contextlib.contextmanager
+def without_device_guard(cuda_lib, *modules):
+    """The launch functions of `modules` without their device guard
+    (`cuda_lib.on_tensor_device`) while the block runs -> how many."""
+    guard = cuda_lib.on_tensor_device(lambda x: x).__code__
+    guarded = [(m, name, fn) for m in modules for name, fn in vars(m).items()
+               if getattr(fn, "__code__", None) is guard]
+    for m, name, fn in guarded:
+        setattr(m, name, fn.__wrapped__)
+    try:
+        yield len(guarded)
+    finally:
+        for m, name, fn in guarded:
+            setattr(m, name, fn)
+
+
 def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep,
-                optim, train_state):
+                optim, train_state, fa):
     """The fine-tune train step at full width: a gradient check at dropout
     0 (kernels vs plain path, f32), then TRAIN_STEPS timed steps on one
-    batch in f32 and in bf16 through the kernels."""
+    batch in f32 and in bf16 through the kernels, and the bf16 step with
+    and without the kernels' device guard."""
     def build(dtype: str, fused: bool, dropout: float):
         kw = dict(dtype=dtype, fused_attention=fused, hidden_dropout_prob=dropout,
                   attention_probs_dropout_prob=dropout)
@@ -1142,6 +1165,33 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     for rank, (us, calls, name) in enumerate(rows):
         if rank < PROFILE_ROWS or "attention_" in name:  # K1's kernels wherever they rank
             print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  {name[:100]}")
+
+    # the host cost of the device guard around every launch (26 a step):
+    # the bf16 step with it, without, without, with; and one guard alone
+    def step_ms() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            step(batch, seed=0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+
+    guard_ms: dict = {True: [], False: []}
+    for guarded in (True, False, False, True):
+        if guarded:
+            guard_ms[True].append(step_ms())
+            continue
+        with without_device_guard(cuda_lib, fa, image_prep) as n_unguarded:
+            guard_ms[False].append(step_ms())
+
+    def enter_guard():
+        with torch.cuda.device(dev):
+            pass
+    print(f"phase train bfloat16 device guard: {guard_ms[True][0]:.2f}, {guard_ms[True][1]:.2f} "
+          f"ms/step with it, {guard_ms[False][0]:.2f}, {guard_ms[False][1]:.2f} without "
+          f"({n_unguarded} launch functions unguarded; {TRAIN_STEPS} steps a reading, in the "
+          f"order with, without, without, with); a guard's entry and exit alone "
+          f"{host_us(enter_guard, calls=2000):.2f} us of host time, 26 a step; on {card}")
     return launches
 
 
@@ -2145,7 +2195,7 @@ def phase_k1_baseline_shapes(dev, cuda_lib, fa) -> dict:
                 errs[name] = err if (name, rate) == ("out", 0.0) else rel
                 key = "out" if name == "out" else "grad"
                 report[key] = max(report[key], err)
-            fwd = functools.partial(fa.fused_self_attention, qc, kc, vc, mask, h, rate, seed)
+            fwd = functools.partial(fa._launch_fwd, qc, kc, vc, mask, h, rate, seed, False)
             lse = fa._launch_fwd(qc, kc, vc, mask, h, rate, seed, with_lse=True)[1]
             bwd = functools.partial(fa._launch_bwd, qc, kc, vc, mask, lse, gc, h, rate, seed)
             times = {"fwd_ms": cuda_ms(fwd, iters=50), "bwd_ms": cuda_ms(bwd, iters=50, warmup=5),
@@ -2438,6 +2488,378 @@ def phase_captions(dev, card, data, work) -> str:
     return out
 
 
+BUNDLE_TIMED = 5  # predict calls timed in each dtype
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of `fn` costs: the calls issued back to back,
+    the card drained before and after, and the issue loop alone timed."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    issue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issue * 1e6 / calls
+
+
+def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out, taggers,
+                 work):
+    """The serving bundle (`inference/export.py`) at full width: the
+    `--fine_tune_cnn` run's checkpoint (12 x 768, L = 170, ResNet-152 at
+    224^2, 7 images, 4 ROIs) exported at batch 8 with
+    `use_pallas_box_attention`, in f32 (TF32 off) and bf16, loaded, and
+    `predict` run on the first 8 of the serve phase's records: 12 K1
+    launches a call (simt in f32, wgmma in bf16) and one K3.  The f32
+    bundle's logits against the live `make_finetune_eval_step` (atol 1e-5,
+    argmax equal), the bf16 bundle's against the f32 one (the JAX test's
+    atol 0.15, rtol 0.2); export and load in seconds, `predict` in ms (wall
+    and CUDA events) beside the live forward's; the host microseconds of a
+    call of each registered op beside its wrapper's launch; then the CLI
+    with `--bundle` over the serve phase's 16 records, whose predictions
+    must equal the `--checkpoint` CLI's.  -> launches on the bundle path."""
+    from macsa_tpu_torch.train import common
+    tok = os.path.join(data, "tok")
+    cfg = config.FCMFConfig(model=config.ModelConfig(dtype="float32"),
+                            text=common.build_text_config(tok, "float32"),
+                            use_pallas_box_attention=True)
+    bundles, dirs, export_s, load_s = {}, {}, {}, {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        dirs[dtype] = export.export_bundle(ft_out, os.path.join(work, f"bundle_{dtype}"),
+                                           batch_size=SERVE_BATCH, device="cuda",
+                                           fcmf_config=cfg, dtype=dtype)
+        export_s[dtype] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bundles[dtype] = export.load_bundle(dirs[dtype], dev)
+        load_s[dtype] = time.perf_counter() - t0
+
+    with open(os.path.join(work, "records.json")) as f:
+        records = json.load(f)
+    args = ["--pretrained_hf_model", tok, "--image_model_checkpoint", taggers[0],
+            "--roi_model_checkpoint", taggers[1],
+            "--roi_csv", os.path.join(data, "data", "roi_data.csv")]
+    # the live eval step on the same weights, in the bundle's configuration
+    server = cli.Server(cli.build_argparser().parse_args(
+        args + ["--checkpoint", ft_out, "--text", "-"]),
+        lambda c, r: (dataclasses.replace(c, use_pallas_box_attention=True), r))
+    batch = server.arrays([server.prep_record(r["text"], r["image_list"])
+                           for r in records[:SERVE_BATCH]])
+
+    # the main path: every count from 0, read right after each predict
+    logits, launches = {}, collections.Counter()
+    for dtype, variant in (("float32", "simt"), ("bfloat16", "wgmma")):
+        cuda_lib.reset_launch_counts()
+        logits[dtype] = bundles[dtype].predict(batch)
+        torch.cuda.synchronize()
+        expect_counts(cuda_lib, {"fused_self_attention": 12,
+                                 f"fused_self_attention.{variant}": 12, "box_attention": 1},
+                      f"bundle {dtype} predict")
+        launches.update(cuda_lib.launch_counts)
+
+    live_step = server.eval_step
+    sent = common.to_device(batch, dev)
+    live = live_step(sent)[1].cpu().numpy()
+    err32 = float(np.abs(logits["float32"] - live).max())
+    if not err32 <= 1e-5 or not (logits["float32"].argmax(-1) == live.argmax(-1)).all():
+        raise AssertionError(f"bundle f32 vs the live eval step: max abs err {err32}")
+    err16 = float(np.abs(logits["bfloat16"] - logits["float32"]).max())
+    if not np.allclose(logits["bfloat16"], logits["float32"], atol=0.15, rtol=0.2):
+        raise AssertionError(f"bundle bf16 vs f32: max abs err {err16}")
+
+    times = {}
+    for dtype, served in bundles.items():
+        walls = []
+        for _ in range(BUNDLE_TIMED):
+            t0 = time.perf_counter()
+            served.predict(batch)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        inputs = [sent[k] for k in export.INPUTS]
+
+        def program(served=served, inputs=inputs):
+            with torch.inference_mode():
+                served._call(*inputs)
+        times[dtype] = {"predict_wall_ms": float(np.median(walls)),
+                        "program_ms": cuda_ms(program, BUNDLE_TIMED, 1)}
+    times["float32"]["live_ms"] = cuda_ms(lambda: live_step(sent), BUNDLE_TIMED, 1)
+    wall = []
+    for _ in range(BUNDLE_TIMED):
+        t0 = time.perf_counter()
+        live_step(sent)[0].cpu()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    times["float32"]["live_wall_ms"] = float(np.median(wall))
+    del server, live_step, bundles
+
+    # host cost of a registered op's call beside its wrapper's launch
+    g = torch.Generator(dev).manual_seed(41)
+    q, k, v = (torch.randn(BATCH * NUM_ASPECTS, 170, 768, device=dev, generator=g,
+                           dtype=torch.bfloat16) for _ in range(3))
+    mask = torch.zeros(BATCH * NUM_ASPECTS, 170, device=dev)
+    bq, bk, bv = (torch.randn(BATCH * 7 * 8, 4, 96, device=dev, generator=g) for _ in range(3))
+    gates = torch.rand(BATCH * 7 * 8, 4, 4, device=dev, generator=g)
+    ops_us = {
+        "fused_self_attention": (
+            host_us(lambda: fa.attention_op(q, k, v, mask, 12, 0.0, 0)),
+            host_us(lambda: fa._launch_fwd(q, k, v, mask, 12, 0.0, 0, False))),
+        "box_attention": (host_us(lambda: ba.box_attention_op(bq, bk, bv, gates)),
+                          host_us(lambda: ba._launch(bq, bk, bv, gates)))}
+
+    # the CLI with --bundle against the --checkpoint CLI (phase serve's output)
+    out = os.path.join(work, "served_bundle.jsonl")
+    cuda_lib.reset_launch_counts()
+    summary = cli.main(args + ["--bundle", dirs["float32"], "--input_json",
+                               os.path.join(work, "records.json"), "--batch_size",
+                               str(SERVE_BATCH), "--output_file", out])
+    forwards = -(-len(records) // SERVE_BATCH)
+    expect_counts(cuda_lib, {"fused_self_attention": 12 * forwards,
+                             "fused_self_attention.simt": 12 * forwards,
+                             "box_attention": forwards}, "the CLI with --bundle")
+    launches.update(cuda_lib.launch_counts)
+    rows = []
+    for name in ("served_bundle.jsonl", "served.jsonl"):
+        with open(os.path.join(work, name)) as f:
+            rows.append([{k: r[k] for k in ("image_tags", "roi_tags", "prediction")}
+                         for r in map(json.loads, f)])
+    if rows[0] != rows[1]:
+        raise AssertionError(f"the CLI with --bundle {rows[0][:2]}... vs --checkpoint "
+                             f"{rows[1][:2]}...")
+
+    for dtype in ("float32", "bfloat16"):
+        t = times[dtype]
+        print(f"phase bundle {dtype}: export {export_s[dtype]:.1f} s, load {load_s[dtype]:.1f} "
+              f"s, predict at batch {SERVE_BATCH}: {t['predict_wall_ms']:.2f} ms wall (host "
+              f"copies in and out included), the program {t['program_ms']:.2f} ms (CUDA "
+              f"events, inputs on the card)"
+              + (f"; the live eval step {t['live_ms']:.2f} ms (events), "
+                 f"{t['live_wall_ms']:.2f} ms wall; max abs err vs live {err32:.3g}"
+                 if dtype == "float32" else f"; max abs err vs the f32 bundle {err16:.3g}")
+              + f"; on {card}")
+    for name, (op, direct) in ops_us.items():
+        print(f"phase bundle host cost of one call: registered op {name} {op:.1f} us, its "
+              f"wrapper's launch {direct:.1f} us")
+    print(f"phase bundle CLI --bundle: {summary['records']} records at --batch_size "
+          f"{summary['batch_size']}, records_per_s {summary['records_per_s']}, predictions "
+          f"equal the --checkpoint CLI's; launches {dict(launches)}")
+    return dict(launches), times, ops_us, export_s, load_s
+
+
+DDP_WORLD = 2
+
+
+def ddp_model(dev, config, fcmf, layers, seed: int):
+    """The full-width FCMF of phase ddp: f32, dropout 0, K1 on, random
+    biases (no tensor starts at zero, so each has a scale to be held to)."""
+    kw = dict(dtype="float32", fused_attention=True, hidden_dropout_prob=0.0,
+              attention_probs_dropout_prob=0.0)
+    cfg = config.FCMFConfig(model=config.ModelConfig(**kw), text=config.TextEncoderConfig(**kw))
+    model = fcmf.FCMF(cfg, device=dev)
+    g = torch.Generator(dev).manual_seed(seed)
+    layers.init_weights(model, g, cfg.model.initializer_range)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.normal_(0.0, cfg.model.initializer_range, generator=g)
+    return cfg, model
+
+
+def ddp_steps(dev, rank: int, world: int, n_steps: int = 2):
+    """`n_steps` fine-tune steps at full width on cached features (f32,
+    dropout 0, AdamW with the driver's defaults) on this rank's share of a
+    batch of 8 made from a seed.  -> (global losses, the trained model)."""
+    from macsa_tpu_torch import config
+    from macsa_tpu_torch.models import fcmf, layers, resnet
+    from macsa_tpu_torch.parallel import mesh
+    from macsa_tpu_torch.train import optim, steps
+    from macsa_tpu_torch.train.state import TrainState
+    cfg, model = ddp_model(dev, config, fcmf, layers, 51)
+    mesh.replicate(model)
+    g = torch.Generator(dev).manual_seed(52)
+    batch = serving_batch(dev, cfg)
+    for key in ("images", "roi_images"):
+        del batch[key]
+    batch["grid"] = torch.randn(BATCH, cfg.num_imgs, 49, 2048, device=dev, generator=g)
+    batch["roi"] = torch.randn(BATCH, cfg.num_imgs, cfg.num_roi, 2048, device=dev, generator=g)
+    batch["labels"] = torch.randint(0, cfg.num_labels, (BATCH, NUM_ASPECTS), device=dev,
+                                    generator=g)
+    per = BATCH // world
+    local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
+    visual = resnet.VisualFeatures(config.ResNetConfig(stage_sizes=(1, 1, 1, 1)), device=dev)
+    # the driver's two rates, constant: both updates move the model.  Adam's
+    # eps is 1e-4, not 1e-8: a gradient that is zero in exact arithmetic (an
+    # attention key's bias: softmax ignores a shift shared by every key) is
+    # rounding noise that depends on the summation order, which eps 1e-8
+    # would scale up to a step of the learning rate's size
+    state = TrainState.create(model, visual, optim.AdamW(model, 7e-5, eps=1e-4,
+                                                         head_learning_rate=7e-4))
+    step = steps.make_finetune_train_step(state)
+    losses = [float(mesh.all_mean(step(local, 0)["loss"])) for _ in range(n_steps)]
+    return losses, model
+
+
+def ddp_worker(rank: int, port: int, work: str, data: str, out: str) -> None:
+    """One of phase ddp's two ranks: gloo over CUDA tensors, both on the one
+    card (NCCL refuses two ranks on one device).  (b) two full-width steps
+    at batch 4 a rank, held against the single-process run the parent
+    saved; (c) `finetune.main` for one epoch.  Its numbers go to `out`."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+    from macsa_tpu_torch.ops import cuda_lib
+    from macsa_tpu_torch.train import finetune
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=DDP_WORLD)
+    try:
+        cuda_lib.reset_launch_counts()
+        losses, model = ddp_steps(dev, rank, DDP_WORLD)
+        torch.cuda.synchronize()
+        step_launches = dict(cuda_lib.launch_counts)
+        ref = torch.load(os.path.join(work, "ddp_reference.pt"), map_location=dev)
+        worst, worst_name = 0.0, ""
+        for name, p in model.state_dict().items():
+            want = ref["params"][name]
+            rel = float((p - want).abs().max() / want.abs().max().clamp(min=1e-30))
+            if rel >= worst:
+                worst, worst_name = rel, name
+        del model, ref
+        torch.cuda.empty_cache()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = finetune.main(ddp_driver_argv(data, os.path.join(work, "ddp_driver"),
+                                               BATCH // DDP_WORLD))
+        torch.cuda.synchronize()
+        with open(out, "w") as f:
+            json.dump({"losses": losses, "param_rel_err": worst, "worst_param": worst_name,
+                       "step_launches": step_launches,
+                       "driver_s": time.perf_counter() - t0,
+                       "driver": {k: result["epochs"][0][k]
+                                  for k in ("steps", "losses", "kernel_launches", "seconds")},
+                       "driver_launches": dict(cuda_lib.launch_counts)}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_driver_argv(data: str, out: str, batch: int, *extra) -> list:
+    return ["--data_dir", os.path.join(data, "data"), "--image_dir",
+            os.path.join(data, "images"), "--output_dir", out, "--pretrained_hf_model",
+            os.path.join(data, "tok"), "--seed", "0", "--log_every", "1",
+            "--train_batch_size", str(batch), "--num_train_epochs", "1", "--do_train", *extra]
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_ddp(dev, card, cuda_lib, finetune, data, work):
+    """Data parallelism (`parallel/mesh.py`) on the one card.  (a) A world
+    of one over NCCL: `finetune.main` for one epoch (f32, the 16-review
+    dataset) gives the losses of the same run with no group.  (b) Two ranks
+    as two processes over gloo with CUDA tensors: two full-width fine-tune
+    steps at batch 4 a rank (f32, TF32 off, dropout 0, cached features)
+    against one process at batch 8: losses within 1e-4, every parameter
+    within 1e-3 of its tensor's largest value.  (c) `finetune.main` under
+    the two ranks for one epoch (bf16, batch 4 a rank): their losses agree,
+    and rank 0 alone wrote the artifacts.  Multi-card NCCL is not driven
+    (one card).  -> launches on the ranks' paths."""
+    import torch.distributed as dist
+    from macsa_tpu_torch.parallel import mesh
+
+    # (a) a world of one over NCCL against no group
+    argv_a = lambda out: ddp_driver_argv(data, os.path.join(work, out), BATCH, "--no-bf16")  # noqa: E731
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        if mesh.process_count() != 1 or dist.get_backend() != "nccl":
+            raise AssertionError("phase ddp (a): not a world of one over NCCL")
+        with_group = finetune.main(argv_a("ddp_nccl"))["epochs"][0]["losses"]
+    finally:
+        dist.destroy_process_group()
+    without = finetune.main(argv_a("ddp_none"))["epochs"][0]["losses"]
+    gap_a = max(abs(a - b) for a, b in zip(with_group, without))
+    if len(with_group) != len(without) or not gap_a <= 1e-4:
+        raise AssertionError(f"phase ddp (a): NCCL world of one {with_group} vs {without}")
+
+    # (b) the single-process reference the ranks are held against
+    ref_losses, model = ddp_steps(dev, 0, 1)
+    torch.save({"losses": ref_losses,
+                "params": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+               os.path.join(work, "ddp_reference.pt"))
+    del model
+    torch.cuda.empty_cache()
+
+    # (b) and (c) in two processes
+    port = free_port()
+    ctx = torch.multiprocessing.get_context("spawn")
+    outs = [os.path.join(work, f"ddp_rank{r}.json") for r in range(DDP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=ddp_worker, args=(r, port, work, data, outs[r]))
+             for r in range(DDP_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase ddp ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    per_step = {"fused_self_attention": 12, "fused_self_attention.simt": 12,
+                "fused_self_attention_bwd": 12, "fused_self_attention_bwd.simt": 12}
+    for r, got in enumerate(ranks):
+        loss_gap = max(abs(a - b) for a, b in zip(got["losses"], ref_losses))
+        if not loss_gap <= 1e-4 or not got["param_rel_err"] <= 1e-3:
+            raise AssertionError(f"phase ddp (b) rank {r}: losses {got['losses']} vs one "
+                                 f"process {ref_losses}, parameters {got['param_rel_err']} "
+                                 f"({got['worst_param']})")
+        if got["step_launches"] != {k: 2 * v for k, v in per_step.items()}:
+            raise AssertionError(f"phase ddp (b) rank {r} launches {got['step_launches']}")
+    steps_c = 16 // BATCH
+    drivers = [got["driver"] for got in ranks]
+    want_c = {"device_normalize": 2 * steps_c}
+    for name in ("fused_self_attention", "fused_self_attention_bwd"):
+        want_c.update({name: 12 * steps_c, f"{name}.wgmma": 12 * steps_c})
+    if drivers[0]["losses"] != drivers[1]["losses"] or \
+            any(d["steps"] != steps_c or d["kernel_launches"] != want_c for d in drivers):
+        raise AssertionError(f"phase ddp (c): ranks {drivers}")
+    out_c = os.path.join(work, "ddp_driver")
+    with open(os.path.join(out_c, "metrics.jsonl")) as f:
+        lines = f.read().splitlines()
+    if not os.path.isfile(os.path.join(out_c, "last.pt")) or len(lines) != steps_c + 1:
+        raise AssertionError(f"phase ddp (c): {sorted(os.listdir(out_c))}, {len(lines)} metric "
+                             f"lines (rank 0 alone writes one a step and one an epoch)")
+    launches = collections.Counter()
+    for got in ranks:
+        launches.update(got["step_launches"])
+        launches.update(got["driver_launches"])
+    print(f"phase ddp (a) a world of one over NCCL: finetune.main losses "
+          + " ".join(f"{x:.5f}" for x in with_group) + f", without a group the same within "
+          f"{gap_a:.2g}; on {card}")
+    print(f"phase ddp (b) 2 ranks over gloo on one card, batch 4 a rank: losses "
+          + " ".join(f"{x:.6f}" for x in ranks[0]["losses"]) + ", one process at batch 8 "
+          + " ".join(f"{x:.6f}" for x in ref_losses) + f"; parameters after 2 steps within "
+          f"{max(g['param_rel_err'] for g in ranks):.3g} of each tensor's largest value")
+    print(f"phase ddp (c) finetune.main under 2 ranks: {drivers[0]['steps']} steps of 4 a rank "
+          f"in {drivers[0]['seconds']:.1f} s, losses "
+          + " ".join(f"{x:.4f}" for x in drivers[0]["losses"])
+          + f" on both ranks; rank 0 alone wrote {sorted(os.listdir(out_c))}; both rank "
+          f"processes {ranks_s:.1f} s with their start; launches {dict(launches)}")
+    return dict(launches)
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     from macsa_tpu_torch import config
@@ -2449,7 +2871,7 @@ def main() -> int:
     from macsa_tpu_torch.data import synth
     from macsa_tpu_torch.train import finetune, optim, pretrain, steps
     from macsa_tpu_torch.train import state as train_state
-    from macsa_tpu_torch.inference import cli
+    from macsa_tpu_torch.inference import cli, export
     from macsa_tpu_torch.tools import image_categories, roi_categories
 
     if not torch.cuda.is_available():
@@ -2492,7 +2914,7 @@ def main() -> int:
     k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
     launches = run(phase_slice, dev, smi, cuda_lib, *model_mods)
     fused_launches, _ = run(phase_fused, dev, smi, cuda_lib, *model_mods, fused_backbone)
-    train_launches = run(phase_train, dev, smi, cuda_lib, *model_mods, optim, train_state)
+    train_launches = run(phase_train, dev, smi, cuda_lib, *model_mods, optim, train_state, fa)
     finetune_launches = run(phase_finetune, smi, cuda_lib, synth, finetune)
     step_launches = run(phase_pretrain_step, dev, smi, cuda_lib, config, layers, seq2seq, resnet,
                         steps, image_prep, optim, train_state)
@@ -2510,6 +2932,9 @@ def main() -> int:
         mde_launches = run(phase_mde, dev, smi, cuda_lib, *model_mods)
         serve_launches = run(phase_serve, smi, cuda_lib, cli, fcmf, steps, data, ft_out,
                              taggers, work)
+        bundle_launches, *_ = run(phase_bundle, dev, smi, cuda_lib, cli, export, config, fa,
+                                  ba, data, ft_out, taggers, work)
+        ddp_launches = run(phase_ddp, dev, smi, cuda_lib, finetune, data, work)
         captions = run(phase_captions, dev, smi, data, work)
         baseline_launches = run(phase_baselines, dev, smi, cuda_lib, data, captions, work)
     run(phase_k1_bwd_device, k1_bwd)
@@ -2520,7 +2945,9 @@ def main() -> int:
         `ms` and `plain_ms` are device times replayed from a CUDA graph (K2,
         K3), `call_ms` and `plain_call_ms` are the same two as back-to-back
         Python calls, the way every other kernel's `ms` is taken (K2's
-        plain version cannot be captured: both of its times are calls)."""
+        plain version cannot be captured: both of its times are calls).
+        K1's `ms` is its launches back to back, its `call_ms` the wrapper's
+        no-autograd calls, which go through the registered op."""
         both = {key: timed[key] for key in ("call_ms", "plain_call_ms") if key in timed}
         return {"name": name, "route": "cuda", "source": f"macsa_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launched, "max_abs_err": err,
@@ -2534,11 +2961,12 @@ def main() -> int:
     k1b_err = max([max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values()]
                   + [k1_phase1["grad"], k1_baselines["grad"]])
     phase1 = (step_launches, decode_launches, pretrain_launches)
-    later = (ft_cnn_launches, mde_launches, serve_launches, baseline_launches)
+    later = (ft_cnn_launches, mde_launches, serve_launches, bundle_launches, ddp_launches,
+             baseline_launches)
 
     def later_launches(name):
         """Launches on Phase 1's paths, and on the fine_tune_cnn, mde,
-        serve and baselines phases'."""
+        serve, bundle, ddp and baselines phases'."""
         return sum(path.get(name, 0) for path in phase1 + later)
 
     def at_256(which: str) -> dict:
@@ -2569,7 +2997,8 @@ def main() -> int:
               max([r["err"] for r in k2.values()] + [k2_phase1]),
               k2[("packed_rois", bf16)]),
         entry("box_attention", "box_attention.cu", "macsa_tpu/ops/box_attention_kernel.py:37",
-              fused_launches["box_attention"], max(r["err"] for r in k3.values()), k3[bf16]),
+              fused_launches["box_attention"] + later_launches("box_attention"),
+              max(r["err"] for r in k3.values()), k3[bf16]),
         entry("fused_matmul_bn_act", "fused_resnet_wgmma.cu",
               "tools_dev/fused_resnet_experiment.py:82", k4_launches,
               max(r["err"] for r in k4.values()), k4_conv1),

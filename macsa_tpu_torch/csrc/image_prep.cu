@@ -237,19 +237,25 @@ Norm make_norm(float inv255, float m0, float m1, float m2, float s0, float s1, f
   return Norm{inv255, {m0, m1, m2}, {s0, s1, s2}};
 }
 
-// blocks that fit on the card at once
+// blocks that fit at once on the current card (the launch's), kept per device
+constexpr int kMaxDevices = 64;
+
 template <typename T>
 int resident_blocks() {
-  static int blocks = 0;
-  if (blocks == 0) {
-    int device = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&device);
+  static int blocks[kMaxDevices] = {};
+  int device = 0;
+  cudaGetDevice(&device);
+  int* cached = device < kMaxDevices ? &blocks[device] : nullptr;
+  if (cached == nullptr || *cached == 0) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tile_normalize_kernel<T>,
                                                   kTileThreads, 0);
-    blocks = sms * (per_sm > 0 ? per_sm : 1);
+    const int n = sms * (per_sm > 0 ? per_sm : 1);
+    if (cached == nullptr) return n;
+    *cached = n;
   }
-  return blocks;
+  return *cached;
 }
 
 template <typename T>

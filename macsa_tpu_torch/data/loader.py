@@ -9,8 +9,9 @@ memoized after first touch when `cache=True`; (b) batches are prefetched on a
 background thread pool so host work overlaps device steps.
 
 A copy of `macsa_tpu/data/loader.py` for the PyTorch port (numpy batches
-out).  The per-host sharding arguments stay in the signature, but more than
-one host raises until data parallelism over several processes is ported.
+out).  Under data parallelism (`parallel/mesh.py`) a driver passes
+`num_hosts` = the world size and `host_id` = its rank: each rank loads
+its contiguous shard of the train split and its stripe of each eval step.
 """
 
 from __future__ import annotations
@@ -104,10 +105,6 @@ class DataLoader:
                  pixel_keys: Sequence[str] = ("images", "roi_images"),
                  needs_pixels: Optional[Callable[[int], bool]] = None,
                  eval_stripe: bool = False):
-        if num_hosts != 1 or host_id != 0:
-            raise NotImplementedError(
-                f"num_hosts={num_hosts}, host_id={host_id}: multi-host loading waits for the "
-                "port's data parallelism (ROADMAP queue 1, the bench item's DDP step)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

@@ -29,8 +29,11 @@ What differs from the JAX CLI:
 * `--fused_attention auto|on|off` as in the drivers (`auto`: the kernel on
   the card).  `--scan_layers` is accepted and ignored (it picks a layout
   of the JAX program).
-* `--bundle` (the JAX CLI's AOT StableHLO artifact) is refused: its
-  counterpart is a `torch.export` artifact, ROADMAP queue 1 item 4.
+* `--bundle` serves a `torch.export` bundle (`inference/export.py`) in
+  place of the JAX CLI's StableHLO one: exactly one of `--checkpoint` and
+  `--bundle`; the shapes come from `bundle.json`, `--batch_size` is
+  clamped to the bundle's, and the bundle must have been exported for
+  `--device`.
 
 Batch serving mode: `--input_json records.json` holding a list of
 `{"text": ..., "image_list": [...]}` records classifies them in chunks of
@@ -59,8 +62,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="checkpoint file of this package, a directory holding best.pt "
                         "(else last.pt), or a reference torch .pth file")
     p.add_argument("--bundle", type=str, default=None,
-                   help="AOT serving bundle of the JAX CLI: refused here (its "
-                        "torch.export counterpart is not written yet)")
+                   help="serving bundle dir (macsa_tpu_torch.inference.export); replaces "
+                        "--checkpoint and the architecture flags: shapes and config come "
+                        "from bundle.json")
     p.add_argument("--pretrained_hf_model", type=str, required=True)
     p.add_argument("--image_model_checkpoint", type=str, default=None,
                    help="image aspect classifier (tools/classifier_io.py file or torch .pth)")
@@ -97,6 +101,36 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
+def load_served_model(checkpoint: str, cfg: FCMFConfig, rcfg: ResNetConfig, device,
+                      resnet_weights: Optional[str] = None, logger=None):
+    """(FCMF, VisualFeatures) on `device` with the weights `checkpoint`
+    names (a checkpoint file of this package, a directory holding `best.pt`
+    else `last.pt`, or a reference `.pth`): the classifier and the ResNet
+    it was trained with (inference.py:57-139), else a seeded ResNet with
+    `resnet_weights` imported."""
+    from macsa_tpu_torch.models.fcmf import FCMF
+    from macsa_tpu_torch.models.layers import init_weights
+    from macsa_tpu_torch.models.resnet import VisualFeatures
+    from macsa_tpu_torch.train import common
+    from macsa_tpu_torch.train.checkpoints import load_state_dicts, resolve_iaog_checkpoint
+
+    path = resolve_iaog_checkpoint(checkpoint)
+    if path is None:
+        raise FileNotFoundError(f"--checkpoint {checkpoint}: no checkpoint file there")
+    model_sd, visual_sd = load_state_dicts(path)
+    model = FCMF(cfg, device=device)
+    model.load_state_dict(model_sd, strict=True)
+    visual = VisualFeatures(rcfg, device=device)
+    if visual_sd is not None:
+        visual.load_state_dict(visual_sd, strict=True)
+        if resnet_weights and logger:
+            logger.warning("--resnet_weights ignored: the checkpoint carries its own ResNet")
+    else:
+        init_weights(visual, torch.Generator(device).manual_seed(0))
+        common.import_resnet_params(visual, resnet_weights, logger)
+    return model, visual
+
+
 class Server:
     """What the CLI serves from its flags: the FCMF classifier and its
     ResNet on `device`, the detector, the two aspect taggers (or none) and
@@ -109,11 +143,7 @@ class Server:
         from macsa_tpu_torch.data.images import roi_boxes_from_csv
         from macsa_tpu_torch.data.tokenizer import load_tokenizer
         from macsa_tpu_torch.inference.pipeline import PrecomputedDetector, YoloDetector
-        from macsa_tpu_torch.models.fcmf import FCMF
-        from macsa_tpu_torch.models.layers import init_weights
-        from macsa_tpu_torch.models.resnet import VisualFeatures
         from macsa_tpu_torch.train import common
-        from macsa_tpu_torch.train.checkpoints import load_state_dicts, resolve_iaog_checkpoint
         from macsa_tpu_torch.train.steps import make_finetune_eval_step
 
         self.args = args
@@ -121,36 +151,40 @@ class Server:
         # f32 means f32: no TF32 in cuBLAS or cuDNN (cuDNN allows it by default)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        fused = common.resolve_fused_attention(args.fused_attention, device)
-        cfg = FCMFConfig(model=ModelConfig(dtype="float32", fused_attention=fused),
-                         text=common.build_text_config(args.pretrained_hf_model, "float32",
-                                                       fused_attention=fused),
-                         num_imgs=args.num_imgs, num_roi=args.num_rois,
-                         max_text_len=args.max_seq_length,
-                         decoder_cross_mask_mode=args.cross_mask_mode)
-        rcfg = ResNetConfig(dtype="float32", stage_sizes=tuple(
-            int(s) for s in args.resnet_stages.split(",")))
-        if config_hook is not None:
-            cfg, rcfg = config_hook(cfg, rcfg)
-        self.config = cfg
         self.tokenizer = load_tokenizer(args.pretrained_hf_model)
-
-        # the classifier and the ResNet it was trained with (inference.py:57-139)
-        path = resolve_iaog_checkpoint(args.checkpoint)
-        if path is None:
-            raise FileNotFoundError(f"--checkpoint {args.checkpoint}: no checkpoint file there")
-        model_sd, visual_sd = load_state_dicts(path)
-        self.model = FCMF(cfg, device=device)
-        self.model.load_state_dict(model_sd, strict=True)
-        self.visual = VisualFeatures(rcfg, device=device)
-        if visual_sd is not None:
-            self.visual.load_state_dict(visual_sd, strict=True)
-            if args.resnet_weights and logger:
-                logger.warning("--resnet_weights ignored: the checkpoint carries its own ResNet")
+        self.bundle = self.config = self.model = self.visual = self.eval_step = None
+        self.image_size = 224
+        if args.bundle is not None:
+            # the exported program replaces the model build; the shapes the
+            # host prepares come from bundle.json, so they are the program's
+            from macsa_tpu_torch.inference.export import load_bundle
+            self.bundle = load_bundle(args.bundle, device)
+            mc = self.bundle.meta["config"]
+            args.num_imgs, args.num_rois = mc["num_imgs"], mc["num_roi"]
+            args.max_seq_length = mc["max_text_len"]
+            self.num_patches = mc["num_patches"]
+            self.image_size = self.bundle.meta["image_size"]
+            if args.batch_size > self.bundle.batch_size:
+                if logger:
+                    logger.warning(f"--batch_size {args.batch_size} > the bundle's batch "
+                                   f"{self.bundle.batch_size}; clamping")
+                args.batch_size = self.bundle.batch_size
         else:
-            init_weights(self.visual, torch.Generator(device).manual_seed(0))
-            common.import_resnet_params(self.visual, args.resnet_weights, logger)
-        self.eval_step = make_finetune_eval_step(self.model, self.visual)
+            fused = common.resolve_fused_attention(args.fused_attention, device)
+            cfg = FCMFConfig(model=ModelConfig(dtype="float32", fused_attention=fused),
+                             text=common.build_text_config(args.pretrained_hf_model,
+                                                           "float32", fused_attention=fused),
+                             num_imgs=args.num_imgs, num_roi=args.num_rois,
+                             max_text_len=args.max_seq_length,
+                             decoder_cross_mask_mode=args.cross_mask_mode)
+            rcfg = ResNetConfig(dtype="float32", stage_sizes=tuple(
+                int(s) for s in args.resnet_stages.split(",")))
+            if config_hook is not None:
+                cfg, rcfg = config_hook(cfg, rcfg)
+            self.config, self.num_patches = cfg, cfg.num_patches
+            self.model, self.visual = load_served_model(args.checkpoint, cfg, rcfg, device,
+                                                        args.resnet_weights, logger)
+            self.eval_step = make_finetune_eval_step(self.model, self.visual)
 
         if args.yolo_weights:
             self.detector = YoloDetector(args.yolo_weights)
@@ -191,25 +225,33 @@ class Server:
             img_tags = img_tags or ["empty"]
             roi_tags = roi_tags or ["empty"]
         images, roi_images, roi_coors = construct_visual_features(
-            self.detector, image_list, args.eps, args.num_rois, args.num_imgs)
+            self.detector, image_list, args.eps, args.num_rois, args.num_imgs,
+            size=self.image_size)
         views = build_aspect_views(text, img_tags, roi_tags, self.tokenizer,
-                                   args.max_seq_length, self.config.num_patches)
+                                   args.max_seq_length, self.num_patches)
         return {"text": text, "img_tags": img_tags, "roi_tags": roi_tags, "images": images,
                 "roi_images": roi_images, "roi_coors": roi_coors, "views": views}
 
-    def batch(self, recs: list) -> dict:
-        """Prepared records -> the eval step's batch, on the device."""
-        from macsa_tpu_torch.train.common import to_device
+    @staticmethod
+    def arrays(recs: list) -> dict:
+        """Prepared records -> the forward's seven inputs as numpy arrays."""
         batch = {k: np.stack([r[k] for r in recs])
                  for k in ("images", "roi_images", "roi_coors")}
         for k in ("input_ids", "token_type_ids", "attention_mask", "added_mask"):
             batch[k] = np.stack([r["views"][k] for r in recs])
-        return to_device(batch, self.device)
+        return batch
+
+    def batch(self, recs: list) -> dict:
+        """Prepared records -> the eval step's batch, on the device."""
+        from macsa_tpu_torch.train.common import to_device
+        return to_device(self.arrays(recs), self.device)
 
     def predict(self, recs: list) -> np.ndarray:
         """Prepared records (one chunk) -> polarity indices [len(recs), A]:
         all 6 aspects of all records in one forward (inference.py:304-326
-        loops over them)."""
+        loops over them), through the bundle's program where one is served."""
+        if self.bundle is not None:
+            return self.bundle.predict(self.arrays(recs)).argmax(-1)
         preds, _ = self.eval_step(self.batch(recs))
         return preds.cpu().numpy()
 
@@ -227,12 +269,8 @@ def main(argv: Optional[list] = None, *, config_hook: Optional[Callable] = None)
     args = parser.parse_args(argv)
     if (args.text is None) == (args.input_json is None):
         parser.error("exactly one of --text / --input_json is required")
-    if args.bundle is not None:
-        raise NotImplementedError(
-            "--bundle: the JAX CLI's StableHLO serving bundle has no counterpart yet (ROADMAP "
-            "queue 1 item 4: a torch.export serving artifact); serve --checkpoint")
-    if args.checkpoint is None:
-        parser.error("--checkpoint is required")
+    if (args.checkpoint is None) == (args.bundle is None):
+        parser.error("exactly one of --checkpoint / --bundle is required")
     server = Server(args, config_hook, setup_logging(None))
 
     if args.input_json is None:  # single-sample mode

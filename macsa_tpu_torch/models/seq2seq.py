@@ -192,15 +192,18 @@ class FCMFSeq2Seq(nn.Module):
 
 
 def seq2seq_loss(logits: torch.Tensor, labels: torch.Tensor,
-                 ignore_index: int = -100) -> torch.Tensor:
+                 ignore_index: int = -100,
+                 denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-level CE with ignore mask — CrossEntropyLoss(ignore_index=-100)
-    over decoder logits (run_pretraining_fcmf.py:322-324), in f32."""
+    over decoder logits (run_pretraining_fcmf.py:322-324), in f32: the sum
+    over the valid tokens divided by their count, or by `denominator`
+    where one is given (data parallelism: `train/steps.pretrain_loss`)."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, 0).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / (valid.sum().clamp(min=1) if denominator is None else denominator)
 
 
 class _ChunkedHeadLoss(torch.autograd.Function):
@@ -210,7 +213,7 @@ class _ChunkedHeadLoss(torch.autograd.Function):
     tensor is ever held."""
 
     @staticmethod
-    def forward(ctx, x, emb, bias, safe, valid, chunk_size):
+    def forward(ctx, x, emb, bias, safe, valid, count, chunk_size):
         n, v = x.shape[0], emb.shape[0]
         m = torch.full((n,), -torch.inf, device=x.device)
         s = torch.zeros(n, device=x.device)
@@ -228,7 +231,6 @@ class _ChunkedHeadLoss(torch.autograd.Function):
         lse = m + torch.log(s)
         # label logit via row gather: an [N, H] product, not [N, V]
         label_logit = (x * emb[safe]).sum(1) + bias[safe]
-        count = valid.sum().clamp(min=1)
         nll = torch.where(valid, lse - label_logit, 0.0)
         ctx.save_for_backward(x, emb, bias, safe, valid, lse, count)
         ctx.chunk_size = chunk_size
@@ -253,12 +255,13 @@ class _ChunkedHeadLoss(torch.autograd.Function):
             grad_x += g @ e_c
             grad_emb[c0:c0 + chunk_size] = g.T @ x
             grad_bias[c0:c0 + chunk_size] = g.sum(0)
-        return grad_x, grad_emb, grad_bias, None, None, None
+        return grad_x, grad_emb, grad_bias, None, None, None, None
 
 
 def chunked_seq2seq_loss(hidden: torch.Tensor, embedding_table: torch.Tensor,
                          out_bias: torch.Tensor, labels: torch.Tensor,
-                         ignore_index: int = -100, chunk_size: int = 8192
+                         ignore_index: int = -100, chunk_size: int = 8192,
+                         denominator: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CE + argmax over the weight-tied vocabulary head WITHOUT holding the
     [B, T, V] f32 logits, for the forward or for the backward.
@@ -269,11 +272,13 @@ def chunked_seq2seq_loss(hidden: torch.Tensor, embedding_table: torch.Tensor,
     d lse / d logit_i = exp(logit_i - lse) whatever the max-shift was, and
     the label's logit differentiates through a row gather.
 
-    -> (mean-over-valid-token CE, argmax token ids [B, T])."""
+    -> (mean-over-valid-token CE, argmax token ids [B, T]); the sum is
+    divided by `denominator` where one is given, as in `seq2seq_loss`."""
     b, t, h = hidden.shape
     valid = (labels != ignore_index).reshape(-1)
     safe = torch.where(valid, labels.reshape(-1), 0).long()
+    count = valid.sum().clamp(min=1) if denominator is None else denominator
     loss, best_idx = _ChunkedHeadLoss.apply(
         hidden.float().reshape(b * t, h), embedding_table.float(), out_bias.float(),
-        safe, valid, chunk_size)
+        safe, valid, count, chunk_size)
     return loss, best_idx.reshape(b, t)

@@ -11,9 +11,13 @@ On a CUDA tensor `fused_box_attention` launches the hand-written kernel
 `box_attention_backward_reference`, the analytic backward that the JAX
 package's custom VJP runs as plain XLA.  On a CPU tensor it runs
 `box_attention_reference`, the plain version, and autograd differentiates
-that.  The TPU kernel's padding of N to 8 rows and d to 128 lanes, and its
--inf mask of the padded keys, exist only for the TPU tile and have no
-counterpart here.
+that.  Without autograd the forward is the registered op
+`torch.ops.macsa_tpu_torch.box_attention` on both devices (the kernel's
+launch on CUDA, the plain version on the CPU, a fake implementation for
+`torch.export`), as K1's is.  The kernel launches under the tensors'
+device, whatever device is current.  The TPU kernel's padding of N to 8
+rows and d to 128 lanes, and its -inf mask of the padded keys, exist only
+for the TPU tile and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import math
 import torch
 
 from macsa_tpu_torch.ops import cuda_lib
+from macsa_tpu_torch.ops.fused_attention import OPS
 
 GEO_CLAMP_MIN = 1e-6  # roi_modeling.py:40
 MAX_ROIS = 8  # the kernel keeps the N x N scores of a slice in registers
@@ -81,6 +86,7 @@ def _check_cuda_args(q, k, v, gates) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+@cuda_lib.on_tensor_device
 def _launch(q, k, v, gates) -> torch.Tensor:
     bh, n, d = q.shape
     out = torch.empty_like(q)
@@ -108,18 +114,41 @@ class _FusedBoxAttention(torch.autograd.Function):
         return box_attention_backward_reference(*ctx.saved_tensors, g)
 
 
+# K3's forward without autograd as a registered op (the library object
+# and the reason for it: `ops/fused_attention.py`)
+OPS.define("box_attention(Tensor q, Tensor k, Tensor v, Tensor gates) -> Tensor")
+OPS.impl("box_attention", box_attention_reference, "CPU")
+
+
+def _box_attention_op_cuda(q, k, v, gates):
+    _check_cuda_args(q, k, v, gates)
+    return _launch(q, k, v, gates)
+
+
+OPS.impl("box_attention", _box_attention_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("macsa_tpu_torch::box_attention")
+def _box_attention_op_fake(q, k, v, gates):
+    return torch.empty_like(q)
+
+
+box_attention_op = torch.ops.macsa_tpu_torch.box_attention.default
+
+
 def fused_box_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         gates: torch.Tensor) -> torch.Tensor:
     """softmax(QK^T/sqrt(d) + log(max(gates, 1e-6))) V per (batch*head).
 
     q/k/v: [BH, N, d]; gates: [BH, N, N] post-ReLU geometric weights, in
     q's dtype.  Returns [BH, N, d] in q's dtype.  Gradients flow to all
-    four inputs."""
-    if q.device.type == "cpu":
-        return box_attention_reference(q, k, v, gates)
-    if q.device.type != "cuda":
+    four inputs; without autograd the call is the registered op
+    `box_attention_op`."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda_args(q, k, v, gates)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, gates)):
+        if q.device.type == "cpu":
+            return box_attention_reference(q, k, v, gates)
+        _check_cuda_args(q, k, v, gates)
         return _FusedBoxAttention.apply(q, k, v, gates)
-    return _launch(q, k, v, gates)
+    return box_attention_op(q, k, v, gates)

@@ -10,7 +10,8 @@ sources and flags, so an edited source rebuilds.  A missing or failing
 
 `launch_counts` is the one piece of module state: each kernel wrapper adds
 one to its entry where it launches its kernel, so a run can show that the
-main path went through the kernels.
+main path went through the kernels.  Every launch runs under its tensors'
+device (`on_tensor_device`).
 """
 
 from __future__ import annotations
@@ -158,3 +159,14 @@ def check(status: int, name: str) -> None:
 
 def stream_handle(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_tensor_device(launch):
+    """Run a launch function under the CUDA device of its first argument, so
+    a kernel reaches the tensors' card whatever device is current (a rank's
+    tensors on `cuda:N` while device 0 is current)."""
+    @functools.wraps(launch)
+    def guarded(x, *args, **kwargs):
+        with torch.cuda.device(x.device):
+            return launch(x, *args, **kwargs)
+    return guarded

@@ -15,7 +15,8 @@ It is not the TPU's PRNG stream: only the keep rate and independence carry
 over, as between the TPU kernel and `jax.random` in the JAX package.
 
 On a CUDA tensor `fused_self_attention` launches the hand-written kernels:
-the forward, and under autograd the backward.  Each has two variants,
+the forward, and under autograd the backward, each under the tensors'
+device, whatever device is current.  Each has two variants,
 picked by `attention_variant` from the dtype and the shape alone: "wgmma"
 (`macsa_tpu_torch/csrc/fused_attention_wgmma.cu`: bf16 at head width 64,
 every product on the tensor cores, the backward in one launch) and "simt"
@@ -24,6 +25,13 @@ f32 or bf16, head width 32 or 64, any length).  `cuda_lib.launch_counts`
 counts each launch under the kernel's name and under "<name>.<variant>".
 On a CPU tensor it runs `attention_reference`, the plain version, and
 autograd differentiates that.
+
+Without autograd the forward is the registered op
+`torch.ops.macsa_tpu_torch.fused_self_attention` on both devices: its CUDA
+implementation is the kernel's launch, its CPU implementation the plain
+version (a dispatch by device, not a fallback), and a fake implementation
+gives its output's shape, so `torch.export` keeps the op in an exported
+program (`inference/export.py`).
 """
 
 from __future__ import annotations
@@ -234,6 +242,7 @@ def _dropout_args(rate: float, seed: int):
     return 1, keep_threshold(rate), _inv_keep(rate), int(seed) & _M32
 
 
+@cuda_lib.on_tensor_device
 def _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse):
     """Forward kernel -> (out [B, L, H*d], lse [B, H, L] f32 or None)."""
     b, l, hd = q.shape
@@ -257,6 +266,7 @@ def _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse):
     return out, lse
 
 
+@cuda_lib.on_tensor_device
 def _launch_bwd(q, k, v, mask, lse, g, num_heads, rate, seed):
     """Backward kernel (one count whatever its launches) -> (dq, dk, dv)."""
     _check_cuda_args(q, k, v, mask, num_heads, ("g", g), ("lse", lse))
@@ -304,6 +314,32 @@ class _FusedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+# K1's forward without autograd as a registered op.  Defined with
+# `torch.library.Library` rather than `torch.library.custom_op`: the same
+# dispatch by device for a fraction of the host time a call costs (no
+# alias checks or autograd wrapper around the implementation).
+OPS = torch.library.Library("macsa_tpu_torch", "FRAGMENT")
+OPS.define("fused_self_attention(Tensor q, Tensor k, Tensor v, Tensor mask, int num_heads, "
+           "float rate, int seed) -> Tensor")
+OPS.impl("fused_self_attention", attention_reference, "CPU")
+
+
+def _attention_op_cuda(q, k, v, mask, num_heads, rate, seed):
+    _check_cuda_args(q, k, v, mask, num_heads)
+    return _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse=False)[0]
+
+
+OPS.impl("fused_self_attention", _attention_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("macsa_tpu_torch::fused_self_attention")
+def _attention_op_fake(q, k, v, mask, num_heads, rate, seed):
+    return torch.empty_like(q)
+
+
+attention_op = torch.ops.macsa_tpu_torch.fused_self_attention.default
+
+
 def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: torch.Tensor, num_heads: int,
                          rate: float = 0.0, seed: int = 0) -> torch.Tensor:
@@ -313,14 +349,15 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     additive f32 row (0 keep, large negative drop); `seed` keys the dropout
     mask (ignored at rate 0).  Returns [B, L, H*d] in the input dtype,
     merged heads, ready for the output projection.  Gradients flow to
-    q/k/v, through K1's backward kernel on CUDA tensors."""
+    q/k/v, through K1's backward kernel on CUDA tensors; without autograd
+    the call is the registered op `attention_op`."""
     _check_rate(rate)
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, mask, num_heads, rate, seed)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
-    _check_cuda_args(q, k, v, mask, num_heads)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        if q.device.type == "cpu":
+            return attention_reference(q, k, v, mask, num_heads, rate, seed)
+        _check_cuda_args(q, k, v, mask, num_heads)
         return _FusedAttention.apply(q, k, v, mask, num_heads, rate, seed)
-    return _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse=False)[0]
+    return attention_op(q, k, v, mask, num_heads, rate, int(seed))

@@ -180,6 +180,7 @@ def _check_aligned(named) -> None:
             raise ValueError(f"{name} must be 16-byte aligned for the tensor-core kernel")
 
 
+@cuda_lib.on_tensor_device
 def _launch_k4(x2, w, mul, add, residual, relu) -> torch.Tensor:
     m, k = x2.shape
     n = w.shape[-1]
@@ -252,6 +253,7 @@ def fused_matmul_bn_act(x2: torch.Tensor, w: torch.Tensor, mul: torch.Tensor,
     return _launch_k4(x2, w, mul, add, residual, relu)
 
 
+@cuda_lib.on_tensor_device
 def _launch_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w) -> torch.Tensor:
     rows, c = x2.shape
     f = w1.shape[-1]

@@ -126,15 +126,19 @@ def unpack_normalize_pixels(words: torch.Tensor, out_dtype=torch.bfloat16) -> to
     out = torch.empty(tuple(words.shape[:-1]) + (size, size, 3), dtype=out_dtype,
                       device=words.device)
     frames = words.numel() // wpf
-    if frames == 0:
-        return out
-    lib = cuda_lib.library()
-    status = lib.macsa_unpack_normalize(
-        words.data_ptr(), out.data_ptr(), frames, wpf, int(out_dtype == torch.bfloat16),
+    if frames:
+        _launch_unpack_normalize(words, out, frames, wpf)
+    return out
+
+
+@cuda_lib.on_tensor_device
+def _launch_unpack_normalize(words: torch.Tensor, out: torch.Tensor, frames: int,
+                             wpf: int) -> None:
+    status = cuda_lib.library().macsa_unpack_normalize(
+        words.data_ptr(), out.data_ptr(), frames, wpf, int(out.dtype == torch.bfloat16),
         *_constants(), cuda_lib.stream_handle(words.device))
     cuda_lib.check(status, "macsa_unpack_normalize")
     cuda_lib.launch_counts["device_normalize"] += 1
-    return out
 
 
 def normalize_images_u8(images: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -147,16 +151,18 @@ def normalize_images_u8(images: torch.Tensor, out_dtype=torch.bfloat16) -> torch
         raise ValueError(f"unsupported device {images.device}")
     _check_cuda_args(images, torch.uint8, out_dtype)
     out = torch.empty(images.shape, dtype=out_dtype, device=images.device)
-    if images.numel() == 0:
-        return out
-    lib = cuda_lib.library()
-    status = lib.macsa_normalize_u8(
-        images.data_ptr(), out.data_ptr(), images.numel(),
-        int(out_dtype == torch.bfloat16), *_constants(),
-        cuda_lib.stream_handle(images.device))
+    if images.numel():
+        _launch_normalize_u8(images, out)
+    return out
+
+
+@cuda_lib.on_tensor_device
+def _launch_normalize_u8(images: torch.Tensor, out: torch.Tensor) -> None:
+    status = cuda_lib.library().macsa_normalize_u8(
+        images.data_ptr(), out.data_ptr(), images.numel(), int(out.dtype == torch.bfloat16),
+        *_constants(), cuda_lib.stream_handle(images.device))
     cuda_lib.check(status, "macsa_normalize_u8")
     cuda_lib.launch_counts["device_normalize"] += 1
-    return out
 
 
 def device_normalize(images: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:

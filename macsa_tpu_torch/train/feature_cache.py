@@ -27,6 +27,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train.common import to_device
 from macsa_tpu_torch.train.disk_feature_cache import prefill_hbm_cache
 from macsa_tpu_torch.train.steps import extract_visual
@@ -76,7 +77,21 @@ class FeatureCacheFeeder:
     where the samples of one review share its images.  Built BEFORE the
     loader starts, so that rows prefilled from `disk_cache` skip host
     decoding from the first step (`needs_pixels` consults `owned`, which
-    the prefill marks).  `keys[i]` is row i's content key in `disk_cache`."""
+    the prefill marks).  `keys[i]` is row i's content key in `disk_cache`.
+
+    Under data parallelism each rank's cache holds the rows that rank
+    computed (`filled`), where JAX's one global cache holds every rank's.
+    A step is warm on a rank when all its own rows are filled, so a rank
+    never reads a row a peer computed: in Phase 1 the samples of one review
+    can sit on both sides of the train shards' boundary, and each rank
+    extracts that review once for itself.  `owned` is the union over the
+    ranks, kept from every rank's row indices of the step
+    (`parallel.fetch_global`, JAX's `global_idx`): it is what the eval
+    loader's pixel gate reads, which asks about the global step's rows.
+    Each eval row is fed by one rank, the same every epoch, so a row owned
+    is filled on the rank that feeds it, and a pixel-less batch is warm on
+    every rank.  The train loader's gate is off under several processes:
+    its batches always carry pixels."""
 
     def __init__(self, visual, cfg, n_rows: int, device, index_key: str, *,
                  disk_cache=None, keys: Optional[List[str]] = None, logger=None,
@@ -85,7 +100,8 @@ class FeatureCacheFeeder:
         self.dtype = cfg.model.torch_dtype
         self.cache = VisualFeatureCache(n_rows, cfg.num_imgs, cfg.num_roi, cfg.num_patches,
                                         cfg.visual_feat_dim, dtype=self.dtype, device=device)
-        self.owned = np.zeros(n_rows, np.bool_)
+        self.filled = np.zeros(n_rows, np.bool_)  # rows in this rank's cache
+        self.owned = np.zeros(n_rows, np.bool_)  # rows in some rank's cache
         self.disk_cache, self.keys = disk_cache, keys
         if logger:
             logger.info(f"visual feature cache{name}: {self.cache.nbytes / 2**20:.0f} MiB "
@@ -93,6 +109,7 @@ class FeatureCacheFeeder:
         if disk_cache is not None:
             loaded = prefill_hbm_cache(disk_cache, keys, self.cache)
             if loaded.any():
+                self.filled |= loaded
                 self.owned |= loaded
                 if logger:
                     logger.info(f"feature cache{name}: prefilled {int(loaded.sum())}/{n_rows} "
@@ -107,24 +124,27 @@ class FeatureCacheFeeder:
         tail each epoch, so a later epoch can contain rows the first pass
         never saw: those batches recompute and fill the cache."""
         idx = np.asarray(batch[self.index_key])
+        global_idx = mesh.fetch_global(idx)
         sent = to_device(batch, self.device)
         # absent when the loader sent a light (all-rows-warm) batch
         images = sent.pop("images", None)
         roi_images = sent.pop("roi_images", None)
         valid = idx >= 0  # pad rows carry -1
-        if self.owned[idx[valid]].all():
+        if self.filled[idx[valid]].all():
             grid, roi = self.cache.lookup(idx)
         else:
             assert images is not None, (
                 "cold feature-cache rows in a pixel-less batch: the "
-                "loader's needs_pixels gate and the owned rows disagree")
+                "loader's needs_pixels gate and the filled rows disagree")
             with torch.no_grad():
                 grid, roi = extract_visual(self.visual, images, roi_images, out_dtype=self.dtype)
             self.cache.update(idx, grid, roi)
-            self.owned[idx[valid]] = True
+            self.filled[idx[valid]] = True
             if self.disk_cache is not None:
                 rows = np.nonzero(valid)[0]
                 self.disk_cache.store_async([self.keys[int(idx[r])] for r in rows],
                                             grid[rows], roi[rows])
+        # every rank's rows of the step are now filled on the rank that fed them
+        self.owned[global_idx[global_idx >= 0]] = True
         sent["grid"], sent["roi"] = grid, roi
         return sent

@@ -18,8 +18,15 @@ What differs from the JAX driver:
 * `--pretrained_iaog_path` takes a Phase-1 output directory of
   `macsa_tpu_torch.train.pretrain` (its `best.pt`, else `last.pt`) or a
   checkpoint file.
+* data parallelism is the reference's DDP over processes (`parallel/mesh.py`):
+  `torchrun --nproc_per_node N -m macsa_tpu_torch.train.finetune ...`, one
+  card a rank; `--train_batch_size` is per process (the global batch is N
+  times it, as in JAX); the ranks' gradients are averaged once an update;
+  dev eval runs on lockstep stripes, gathered to every rank; only rank 0
+  writes logs, metrics, checkpoints and reports.  With dropout on, N ranks
+  draw other masks than one process (the masks hash the local row).
 * not ported yet, refused with the ROADMAP item that will lift it:
-  `--mp > 1`.
+  `--mp > 1` (tensor parallelism).
 * `--fine_tune_cnn` trains the ResNet beside the model (convolutions and
   all four tensors of every FrozenBatchNorm, in the one AdamW); the feature
   cache is then off unless `--cache_visual_features on`, as in JAX.
@@ -47,6 +54,7 @@ from macsa_tpu_torch.data.vimacsa import MACSADataset
 from macsa_tpu_torch.models.fcmf import FCMF
 from macsa_tpu_torch.models.layers import init_weights
 from macsa_tpu_torch.models.resnet import VisualFeatures
+from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train import common
 from macsa_tpu_torch.train.checkpoints import (CheckpointManager, load_model_state_dict,
                                                resolve_iaog_checkpoint,
@@ -57,8 +65,8 @@ from macsa_tpu_torch.train.metrics import aspect_report, write_test_reports
 from macsa_tpu_torch.train.optim import AdamW, linear_warmup_schedule
 from macsa_tpu_torch.train.state import TrainState
 from macsa_tpu_torch.train.steps import make_finetune_eval_step, make_finetune_train_step
-from macsa_tpu_torch.utils.logging import (MetricWriter, device_kernel_seconds, maybe_profile,
-                                           setup_logging)
+from macsa_tpu_torch.utils.logging import (MetricWriter, NullWriter, device_kernel_seconds,
+                                           maybe_profile, setup_logging)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -75,7 +83,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--num_rois", type=int, default=4)
     p.add_argument("--alpha", type=float, default=0.7)
     p.add_argument("--max_seq_length", type=int, default=170)
-    p.add_argument("--train_batch_size", type=int, default=8)
+    p.add_argument("--train_batch_size", type=int, default=8,
+                   help="per process; the global batch is the world size times it")
     p.add_argument("--eval_batch_size", type=int, default=8)
     p.add_argument("--encoder_learning_rate", type=float, default=7e-5)
     p.add_argument("--classifier_head_learning_rate", type=float, default=7e-4)
@@ -169,9 +178,11 @@ def main(argv: Optional[list] = None, *,
     import (to load carried-over parameters)."""
     args = build_argparser().parse_args(argv)
     refuse_unported(args)
-    device = resolve_device(args.device)
-    logger = setup_logging(args.output_dir)
-    writer = MetricWriter(args.output_dir)
+    device = mesh.maybe_initialize_distributed(resolve_device(args.device))
+    n_hosts, host_id = mesh.process_count(), mesh.process_index()
+    is_main = host_id == 0
+    logger = setup_logging(args.output_dir if is_main else None, is_main=is_main)
+    writer = MetricWriter(args.output_dir) if is_main else NullWriter()
     np.random.seed(args.seed)
     logger.info(f"--prng {args.prng}: ignored (a JAX PRNG choice; dropout is drawn from "
                 f"(seed, step) by torch generators)")
@@ -223,6 +234,8 @@ def main(argv: Optional[list] = None, *,
                            "training from scratch")
     if model_hook is not None:
         model_hook(model, visual)
+    mesh.replicate(model)  # every rank starts from rank 0's weights
+    mesh.replicate(visual)
 
     # --- optimizer (dual LR, run_multimodal_fcmf.py:247-289) -------------
     train_ds = make_dataset("train") if args.do_train else None
@@ -293,18 +306,25 @@ def main(argv: Optional[list] = None, *,
 
     def pixels_needed(split: str):
         """Per-sample gate for the loader: pixels are required only until the
-        device feature cache owns that row (None => always carry pixels)."""
+        device feature cache owns that row (None => always carry pixels).
+        Under several processes the train loader's gate is off (JAX's rule:
+        each rank shuffles its own shard, so it cannot answer for its
+        peers' rows); the eval stripes gate on the global step's rows."""
         return feeders[split].needs_pixels if use_feature_cache else None
 
     def run_eval(dataset, split: str = "dev") -> dict:
-        """Dev/test eval: every row computed once, the trailing pad rows of
-        the last batch (marked -1) dropped."""
+        """Dev eval over the ranks in lockstep: global step s covers rows
+        [s*G, (s+1)*G), G = ranks x eval_batch_size, each rank its stripe;
+        every row is computed once, the trailing clone rows (marked -1)
+        dropped, and `fetch_global` brings the predictions and labels to
+        every rank, so every rank returns the full report."""
         n = len(dataset)
-        g = args.eval_batch_size
+        g = n_hosts * args.eval_batch_size
         ensure_cache(split, dataset)
         loader = DataLoader(dataset, args.eval_batch_size, num_workers=8,
                             cache=use_feature_cache,
                             needs_pixels=pixels_needed(split),
+                            num_hosts=n_hosts, host_id=host_id,
                             eval_stripe=True)
         trues = np.zeros((n, len(ASPECTS)), np.int32)
         preds = np.zeros((n, len(ASPECTS)), np.int32)
@@ -312,28 +332,32 @@ def main(argv: Optional[list] = None, *,
             labels = batch["labels"]
             p, _ = eval_step(featurize(split, batch))
             m = min(g, n - s * g)  # trailing rows are -1-marked clone pads
-            preds[s * g:s * g + m] = p.cpu().numpy()[:m]
-            trues[s * g:s * g + m] = labels[:m]
+            preds[s * g:s * g + m] = mesh.fetch_global(p)[:m]
+            trues[s * g:s * g + m] = mesh.fetch_global(labels)[:m]
         return aspect_report(trues, preds)
 
     result: dict = {}
     if args.do_train:
         dev_ds = make_dataset("dev") if args.do_eval else None
         ensure_cache("train", train_ds)
+        # this rank's contiguous shard of the train split
         loader = DataLoader(train_ds, args.train_batch_size, shuffle=True,
                             seed=args.seed, drop_last=True, num_workers=8,
-                            cache=True, needs_pixels=pixels_needed("train"))
+                            cache=True, num_hosts=n_hosts, host_id=host_id,
+                            needs_pixels=pixels_needed("train") if n_hosts == 1 else None)
         result["epochs"] = []
         for epoch in range(start_epoch, args.num_train_epochs):
             loader.set_epoch(epoch)
             meter, losses = common.EpochMeter(epoch, int(state.step)), []
             # with --profile_dir: one trace an epoch, of its train steps only
-            with maybe_profile(args.profile_dir, tag=f"epoch{epoch}") as prof:
+            with maybe_profile(args.profile_dir if is_main else None,
+                               tag=f"epoch{epoch}") as prof:
                 for batch in meter.batches(loader):
                     metrics = train_step(featurize("train", batch), args.seed)
                     meter.count(args.train_batch_size)
                     if meter.steps % args.log_every == 0:
-                        loss, rate = float(metrics["loss"]), meter.rate()
+                        # the global batch's loss: the mean of the ranks' equal batches
+                        loss, rate = float(mesh.all_mean(metrics["loss"])), meter.rate()
                         losses.append(loss)
                         logger.info(f"epoch {epoch} step {meter.steps}: "
                                     f"loss {loss:.4f}  {rate:.2f} samples/s")
@@ -357,10 +381,14 @@ def main(argv: Optional[list] = None, *,
                 if f1 > best_f1:
                     best_f1 = f1
                     logger.info(f"new best F1 {best_f1:.4f}; saving best")
-                    ckpt.save("best", state, epoch + 1, best_f1)
-                    ckpt.copy("best", "last")  # identical payload
+                    if is_main:
+                        ckpt.save("best", state, epoch + 1, best_f1)
+                        ckpt.copy("best", "last")  # identical payload
+                    mesh.barrier()
                     continue
-            ckpt.save("last", state, epoch + 1, best_f1)
+            if is_main:
+                ckpt.save("last", state, epoch + 1, best_f1)
+            mesh.barrier()
         ckpt.finalize()
         result["best_dev_f1"] = best_f1
 
@@ -385,8 +413,11 @@ def main(argv: Optional[list] = None, *,
         result["test"] = report
 
         # artifact files matching the reference (:660-694), in the byte
-        # format `macsa_tpu.train.metrics` pins
-        write_test_reports(args.output_dir, report, texts, trues, preds)
+        # format `macsa_tpu.train.metrics` pins; every rank ran the whole
+        # test split, rank 0 writes
+        if is_main:
+            write_test_reports(args.output_dir, report, texts, trues, preds)
+        mesh.barrier()
         logger.info(f"test macro-F1 {report['average']['f1']:.4f}")
 
     if disk_cache is not None:

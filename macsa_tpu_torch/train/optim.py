@@ -12,6 +12,9 @@ The reference recipe (run_multimodal_fcmf.py:247-314):
   (no `+1e-6`, unlike `torch.nn.utils.clip_grad_norm_`),
 * gradient accumulation with `optax.MultiSteps` semantics: the running
   mean of k gradients, then one clipped update,
+* under data parallelism (`parallel/mesh.py`) the accumulated gradient is
+  averaged over the ranks before the clip, so every rank takes the update
+  of the global batch,
 * `BertAdam` (fcmf_framework/optimization.py): Adam without bias
   correction, decoupled weight decay, inline warmup schedules.
 
@@ -33,6 +36,7 @@ from torch import nn
 
 from macsa_tpu_torch.models.layers import LayerNormTF
 from macsa_tpu_torch.models.resnet import FrozenBatchNorm
+from macsa_tpu_torch.parallel.mesh import all_reduce_gradients
 
 Schedule = Callable[[int], float]
 NO_DECAY_LEAVES = ("bias", "out_bias")  # run_multimodal_fcmf.py:249
@@ -146,7 +150,8 @@ class AdamW:
     @torch.no_grad()
     def step(self) -> None:
         """Take the parameters' gradients: accumulate them, or (every
-        `accumulate_steps` calls) clip and apply one update."""
+        `accumulate_steps` calls) average them over the ranks, clip and
+        apply one update."""
         grads = _grads(self.params)
         if self.accumulate_steps > 1:
             if self._acc is None:
@@ -161,6 +166,9 @@ class AdamW:
             self._micro = 0
             torch._foreach_copy_(grads, self._acc)
             torch._foreach_zero_(self._acc)
+        # data parallelism: the mean over the ranks, once an update (JAX's
+        # micro-step gradients are global already; MultiSteps averages them)
+        all_reduce_gradients(grads)
         if self.max_grad_norm is not None:
             clip_by_global_norm_(grads, self.max_grad_norm)
         for group in self.optimizer.param_groups:

@@ -21,8 +21,12 @@ What differs from the JAX driver:
   the second a layout of the JAX program (the blocks run unrolled here).
 * nothing on a step's path waits on the device: the loss is read every
   `--log_every` steps and at the epoch's end.
-* one process on one card: `--mp > 1` is refused, with the ROADMAP item
-  that will lift it.
+* data parallelism is the reference's DDP over processes (`parallel/mesh.py`,
+  `torchrun --nproc_per_node N -m macsa_tpu_torch.train.pretrain ...`):
+  `--train_batch_size` is per process, the loss is the mean over the
+  global batch's valid tokens (`steps.pretrain_loss`), only rank 0 logs,
+  writes metrics and checkpoints and decodes the debug samples.
+  `--mp > 1` is refused, with the ROADMAP item that will lift it.
 * `--fine_tune_cnn` is accepted and leaves the ResNet frozen, as the JAX
   driver's Phase-1 step does (it only turns the feature cache's `auto` off).
 
@@ -46,6 +50,7 @@ from macsa_tpu_torch.data.tokenizer import load_tokenizer
 from macsa_tpu_torch.models.layers import init_weights
 from macsa_tpu_torch.models.resnet import VisualFeatures
 from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq
+from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train import common
 from macsa_tpu_torch.train.checkpoints import CheckpointManager
 from macsa_tpu_torch.train.common import resolve_device, resolve_fused_attention, to_device
@@ -55,7 +60,7 @@ from macsa_tpu_torch.train.generation import (decode_text, evaluate_generation,
 from macsa_tpu_torch.train.optim import AdamW, linear_warmup_schedule
 from macsa_tpu_torch.train.state import TrainState
 from macsa_tpu_torch.train.steps import make_pretrain_train_step, visual_features
-from macsa_tpu_torch.utils.logging import MetricWriter, setup_logging
+from macsa_tpu_torch.utils.logging import MetricWriter, NullWriter, setup_logging
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -182,8 +187,7 @@ def refuse_unported(args) -> None:
     if args.mp != 1:
         raise NotImplementedError(
             f"--mp {args.mp}: tensor parallelism is not ported (ROADMAP queue 1, tensor "
-            "parallelism); the driver is one process on one card until data parallelism "
-            "is ported too (ROADMAP queue 1, DDP)")
+            "parallelism); data parallelism is: launch N processes with torchrun")
 
 
 def main(argv: Optional[list] = None, *,
@@ -196,10 +200,12 @@ def main(argv: Optional[list] = None, *,
     weight import (to load carried-over parameters)."""
     args = build_argparser().parse_args(argv)
     refuse_unported(args)
-    device = resolve_device(args.device)
+    device = mesh.maybe_initialize_distributed(resolve_device(args.device))
+    n_hosts, host_id = mesh.process_count(), mesh.process_index()
+    is_main = host_id == 0
     data_dir = args.data_dir or args.pretrained_data_dir
-    logger = setup_logging(args.output_dir)
-    writer = MetricWriter(args.output_dir)
+    logger = setup_logging(args.output_dir if is_main else None, is_main=is_main)
+    writer = MetricWriter(args.output_dir) if is_main else NullWriter()
     np.random.seed(args.seed)
     logger.info(f"--prng {args.prng}, --scan_decoder {args.scan_decoder}: ignored (choices of "
                 "the JAX program; dropout is drawn from (seed, step) by torch generators, the "
@@ -256,6 +262,8 @@ def main(argv: Optional[list] = None, *,
     common.import_resnet_params(visual, args.resnet_weights, logger)
     if model_hook is not None:
         model_hook(model, visual)
+    mesh.replicate(model)  # every rank starts from rank 0's weights
+    mesh.replicate(visual)
 
     # --- optimizer: single-rate AdamW (run_pretraining_fcmf.py:254-270) ---
     train_ds = make_dataset("train") if args.do_train else None
@@ -328,14 +336,17 @@ def main(argv: Optional[list] = None, *,
     result: dict = {}
     if args.do_train:
         # pixels required only until the feature cache owns the sample's
-        # ORIGINAL review row (aspect-expanded samples share images)
+        # ORIGINAL review row (aspect-expanded samples share images).
+        # Several processes keep the gate off: each rank shuffles its own
+        # shard, so it cannot answer for its peers' rows (JAX's rule).
         needs_pixels = None
-        if feeder is not None:
+        if feeder is not None and n_hosts == 1:
             needs_pixels = lambda i: (  # noqa: E731
                 feeder.needs_pixels(train_ds.samples[i]["original_idx"]))
         loader = DataLoader(train_ds, args.train_batch_size, shuffle=True,
                             seed=args.seed, drop_last=True, num_workers=8,
-                            cache=True, needs_pixels=needs_pixels)
+                            cache=True, num_hosts=n_hosts, host_id=host_id,
+                            needs_pixels=needs_pixels)
         result["epochs"] = []
         for epoch in range(start_epoch, args.num_train_epochs):
             loader.set_epoch(epoch)
@@ -350,17 +361,19 @@ def main(argv: Optional[list] = None, *,
                 meter.count(args.train_batch_size)
                 i = meter.steps
                 if i % args.log_every == 0:
-                    loss, acc = float(metrics["loss"]), float(metrics["token_accuracy"])
+                    # this rank's share of the global mean: their mean is the global loss
+                    loss = float(mesh.all_mean(metrics["loss"]))
+                    acc = float(metrics["token_accuracy"])
                     losses.append(loss)
                     rate = meter.rate()
                     logger.info(f"epoch {epoch} step {i}: loss {loss:.4f} "
                                 f"tok-acc {acc:.3f} {rate:.2f} samples/s")
                     writer.write(int(state.step), loss=loss, token_accuracy=acc,
                                  samples_per_s=rate, epoch=epoch)
-                if args.debug_decode_every and i % args.debug_decode_every == 0:
+                if is_main and args.debug_decode_every and i % args.debug_decode_every == 0:
                     debug_decode(sent, texts)
             # the epoch's one wait for the device: its steps' losses
-            mean_loss = (float(torch.stack(step_losses).double().mean())
+            mean_loss = (float(mesh.all_mean(torch.stack(step_losses).double().mean()))
                          if step_losses else 0.0)
             result["epochs"].append(meter.stop(mean_loss=mean_loss, losses=losses))
             i = meter.steps
@@ -368,11 +381,13 @@ def main(argv: Optional[list] = None, *,
             meter.write(writer, int(state.step), epoch_mean_loss=mean_loss)
             if i > 0 and mean_loss < best_loss:
                 best_loss = mean_loss
-                ckpt.save("best", state, epoch + 1, -best_loss)
-                ckpt.copy("best", "last")  # identical payload
-            elif ((epoch + 1 - start_epoch) % max(args.checkpoint_every, 1) == 0
-                  or epoch == int(args.num_train_epochs) - 1):
+                if is_main:
+                    ckpt.save("best", state, epoch + 1, -best_loss)
+                    ckpt.copy("best", "last")  # identical payload
+            elif is_main and ((epoch + 1 - start_epoch) % max(args.checkpoint_every, 1) == 0
+                              or epoch == int(args.num_train_epochs) - 1):
                 ckpt.save("last", state, epoch + 1, -best_loss)
+            mesh.barrier()
         ckpt.finalize()
         result["best_train_loss"] = best_loss
 

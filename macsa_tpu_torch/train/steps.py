@@ -22,6 +22,7 @@ from macsa_tpu_torch.models.layers import DropoutRng
 from macsa_tpu_torch.models.resnet import VisualFeatures
 from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq, chunked_seq2seq_loss, seq2seq_loss
 from macsa_tpu_torch.ops.image_prep import device_normalize
+from macsa_tpu_torch.parallel.mesh import all_sum, process_count
 from macsa_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -74,7 +75,10 @@ def aspect_loss(logits: torch.Tensor, labels: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, accuracy) of [B, A, num_labels] logits: CE in f32, mean over
     the batch per aspect, summed over the aspects; accuracy over all B x A
-    views."""
+    views.  Under data parallelism every rank's batch has as many rows, so
+    the mean of the ranks' gradients (`train/optim.py`) is the global
+    batch's: the FCMF step and the three baselines' (`baseline_steps.py`)
+    need nothing more."""
     labels = labels.long()
     ce = F.cross_entropy(logits.float().flatten(0, 1), labels.flatten(),
                          reduction="none").reshape(labels.shape)
@@ -145,23 +149,31 @@ def pretrain_loss(model: FCMFSeq2Seq, visual: VisualFeatures, batch: Batch,
                   rng: Optional[DropoutRng] = None, vocab_chunk: int = 0
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(loss, token accuracy) of one IAOG batch: CE with ignore_index -100
-    over the decoder's logits (run_pretraining_fcmf.py:322-324).
+    over the decoder's logits (run_pretraining_fcmf.py:322-324).  Under
+    data parallelism the loss is this rank's share of the global batch's
+    mean (its mean over the ranks is the global mean) and the accuracy is
+    the global batch's.
     `vocab_chunk` > 0 takes the loss and the argmax from
     `chunked_seq2seq_loss`: the [B, T, V] f32 logits are never held."""
     grid, roi = visual_features(model, visual, batch)
     args = (batch["enc_input_ids"], batch["dec_input_ids"], grid, roi, batch["roi_coors"],
             batch.get("token_type_ids"), batch["attention_mask"], batch["added_mask"])
     labels = batch["labels"]
+    # the mean over the GLOBAL batch's valid tokens, as JAX takes it: this
+    # rank's sum over the global count, times the world size, so that the
+    # optimizer's mean over the ranks is the global mean's gradient
+    valid = labels != -100
+    count = all_sum(valid.sum()).clamp(min=1)
+    denominator = count / process_count()
     if vocab_chunk > 0:
         hidden = model(*args, rng=rng, return_hidden=True)
         loss, pred = chunked_seq2seq_loss(hidden, model.shared_embedding,
                                           model.decoder.dense.bias, labels,
-                                          chunk_size=vocab_chunk)
+                                          chunk_size=vocab_chunk, denominator=denominator)
     else:
         logits = model(*args, rng=rng)
-        loss, pred = seq2seq_loss(logits, labels), logits.argmax(-1)
-    valid = labels != -100
-    acc = ((pred == labels) & valid).sum() / valid.sum().clamp(min=1)
+        loss, pred = seq2seq_loss(logits, labels, denominator=denominator), logits.argmax(-1)
+    acc = all_sum(((pred == labels) & valid).sum()) / count
     return loss, acc
 
 

@@ -18,8 +18,12 @@ What differs from the JAX driver, as in `train/finetune.py`:
   cpu` raises.
 * checkpoints are torch files (`best.pt`, `last.pt`); `--bf16` is
   `--bf16/--no-bf16`; `--prng` is accepted and ignored.
-* one process on one card: a launch of more than one process (`WORLD_SIZE`
-  above 1) is refused until data parallelism is ported (ROADMAP queue 1, DDP).
+* data parallelism is the reference's DDP over processes (`parallel/mesh.py`,
+  `torchrun --nproc_per_node N -m macsa_tpu_torch.train.train_baselines ...`):
+  `--train_batch_size` is per process, each rank trains on its shard, the
+  gradients are averaged once an update, every rank evaluates the whole
+  dev and test splits (as every JAX host does), and only rank 0 logs,
+  writes metrics, checkpoints and reports.
 
 Run: python -m macsa_tpu_torch.train.train_baselines --model mroberta --do_train ...
 """
@@ -43,6 +47,7 @@ from macsa_tpu_torch.data.tokenizer import load_tokenizer
 from macsa_tpu_torch.models.baselines import BASELINE_NAMES, build_baseline
 from macsa_tpu_torch.models.layers import init_weights
 from macsa_tpu_torch.models.resnet import VisualFeatures
+from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train import common
 from macsa_tpu_torch.train.baseline_steps import make_baseline_eval_step, make_baseline_train_step
 from macsa_tpu_torch.train.checkpoints import CheckpointManager
@@ -50,7 +55,7 @@ from macsa_tpu_torch.train.common import resolve_device, resolve_fused_attention
 from macsa_tpu_torch.train.metrics import aspect_report, write_test_reports
 from macsa_tpu_torch.train.optim import AdamW, linear_warmup_schedule
 from macsa_tpu_torch.train.state import TrainState
-from macsa_tpu_torch.utils.logging import MetricWriter, setup_logging
+from macsa_tpu_torch.utils.logging import MetricWriter, NullWriter, setup_logging
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -100,15 +105,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported() -> None:
-    """A launch of several processes (torchrun and the like set WORLD_SIZE)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: more than one process is not ported; the driver is one "
-            "process on one card until data parallelism is (ROADMAP queue 1, DDP)")
-
-
 def main(argv: Optional[list] = None, *,
          config_hook: Optional[Callable] = None,
          model_hook: Optional[Callable] = None) -> dict:
@@ -117,10 +113,11 @@ def main(argv: Optional[list] = None, *,
     built from the flags, `model_hook(model, visual)` runs after the weight
     import (`visual` is None for efcap)."""
     args = build_argparser().parse_args(argv)
-    refuse_unported()
-    device = resolve_device(args.device)
-    logger = setup_logging(args.output_dir)
-    writer = MetricWriter(args.output_dir)
+    device = mesh.maybe_initialize_distributed(resolve_device(args.device))
+    n_hosts, host_id = mesh.process_count(), mesh.process_index()
+    is_main = host_id == 0
+    logger = setup_logging(args.output_dir if is_main else None, is_main=is_main)
+    writer = MetricWriter(args.output_dir) if is_main else NullWriter()
     np.random.seed(args.seed)
     logger.info(f"--prng {args.prng}: ignored (a JAX PRNG choice; dropout is drawn from "
                 f"(seed, step) by torch generators)")
@@ -174,6 +171,9 @@ def main(argv: Optional[list] = None, *,
         common.import_resnet_params(visual, args.resnet_weights, logger)
     if model_hook is not None:
         model_hook(model, visual)
+    for module in (model, visual):  # every rank starts from rank 0's weights
+        if module is not None:
+            mesh.replicate(module)
 
     # --- optimizer: one AdamW, no head rate ------------------------------
     train_ds = make_dataset("train") if args.do_train else None
@@ -214,7 +214,8 @@ def main(argv: Optional[list] = None, *,
     if args.do_train:
         dev_ds = make_dataset("dev") if args.do_eval else None
         loader = DataLoader(train_ds, args.train_batch_size, shuffle=True, seed=args.seed,
-                            drop_last=True, num_workers=8, cache=True)
+                            drop_last=True, num_workers=8, cache=True,
+                            num_hosts=n_hosts, host_id=host_id)
         result["epochs"] = []
         for epoch in range(start_epoch, args.num_train_epochs):
             loader.set_epoch(epoch)
@@ -223,7 +224,7 @@ def main(argv: Optional[list] = None, *,
                 metrics = train_step(to_device(batch, device), args.seed)
                 meter.count(args.train_batch_size)
                 if meter.steps % args.log_every == 0:
-                    loss, rate = float(metrics["loss"]), meter.rate()
+                    loss, rate = float(mesh.all_mean(metrics["loss"])), meter.rate()
                     losses.append(loss)
                     logger.info(f"epoch {epoch} step {meter.steps}: loss {loss:.4f}  "
                                 f"{rate:.2f} samples/s")
@@ -239,10 +240,14 @@ def main(argv: Optional[list] = None, *,
                 writer.write(int(state.step), dev_f1=f1, epoch=epoch)
                 if f1 > best_f1:
                     best_f1 = f1
-                    ckpt.save("best", state, epoch + 1, best_f1)
-                    ckpt.copy("best", "last")  # identical payload
+                    if is_main:
+                        ckpt.save("best", state, epoch + 1, best_f1)
+                        ckpt.copy("best", "last")  # identical payload
+                    mesh.barrier()
                     continue
-            ckpt.save("last", state, epoch + 1, best_f1)
+            if is_main:
+                ckpt.save("last", state, epoch + 1, best_f1)
+            mesh.barrier()
         ckpt.finalize()
         result["best_dev_f1"] = best_f1
 
@@ -252,8 +257,10 @@ def main(argv: Optional[list] = None, *,
         trues, preds, texts = run_eval(make_dataset("test"))
         report = aspect_report(trues, preds)
         result["test"] = report
-        write_test_reports(args.output_dir, report, texts, trues, preds,
-                           results_filename=f"test_results_{args.model}.txt")
+        if is_main:
+            write_test_reports(args.output_dir, report, texts, trues, preds,
+                               results_filename=f"test_results_{args.model}.txt")
+        mesh.barrier()
         logger.info(f"test macro-F1 {report['average']['f1']:.4f}")
     return result
 

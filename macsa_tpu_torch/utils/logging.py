@@ -40,6 +40,14 @@ def setup_logging(output_dir: Optional[str] = None,
     return logger
 
 
+class NullWriter:
+    """The metric writer of a process that writes no files (a rank other
+    than 0 under data parallelism)."""
+
+    def write(self, step: int, **metrics: Any) -> None:
+        pass
+
+
 class MetricWriter:
     """Append-only JSONL metrics file."""
 

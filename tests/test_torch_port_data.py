@@ -391,7 +391,7 @@ def test_one_synth_batch_is_equal_from_both_loaders(synth_dirs, shuffle):
 
 
 def test_loader_gates_pixels_and_refuses_more_hosts(synth_dirs):
-    _, tds = _datasets(synth_dirs)
+    jds, tds = _datasets(synth_dirs)
     warm = np.zeros(len(tds), bool)
     loader = tloader.DataLoader(tds, 4, num_workers=2, cache=True,
                                 needs_pixels=lambda i: not warm[i])
@@ -400,8 +400,15 @@ def test_loader_gates_pixels_and_refuses_more_hosts(synth_dirs):
     warm[:] = True
     light = next(iter(loader))
     assert "images" not in light and np.array_equal(light["input_ids"], first["input_ids"])
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        tloader.DataLoader(tds, 4, num_hosts=2, host_id=1)
+    # more hosts are no longer refused (data parallelism): each host's train
+    # shard and eval stripes are the original loader's, row for row
+    for host in (0, 1):
+        for kw in (dict(shuffle=True, seed=3, drop_last=True), dict(eval_stripe=True)):
+            got, want = (
+                [b["_idx"].tolist() for b in mod.DataLoader(ds, 3, num_workers=2, num_hosts=2,
+                                                            host_id=host, **kw)]
+                for mod, ds in ((tloader, tds), (jloader, jds)))
+            assert got == want and got, (host, kw)
 
 
 def test_text_config_and_fingerprint(synth_dirs, tmp_path):

@@ -230,6 +230,70 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         fa.fused_self_attention(q, q, q, mask, 3, rate=1.0)
 
 
+def test_kernels_launch_on_the_tensors_device_whatever_device_is_current(cuda):
+    """A rank's tensors on cuda:1 while device 0 is current: K1 forward and
+    backward, K3 and K2 launch on the tensors' card (each wrapper runs
+    under `torch.cuda.device(x.device)`) and match their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    g = torch.Generator(dev).manual_seed(11)
+    q, k, v, gout = (torch.randn(2, 40, 768, device=dev, generator=g) for _ in range(4))
+    mask = torch.zeros(2, 40, device=dev)
+    bq, bk, bv = (torch.randn(48, 4, 96, device=dev, generator=g) for _ in range(3))
+    gates = torch.rand(48, 4, 4, device=dev, generator=g)
+    pixels = torch.randint(0, 256, (3, 224, 224, 3), dtype=torch.uint8, device=dev,
+                           generator=g)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    cuda_lib.reset_launch_counts()
+    with torch.cuda.device(0):
+        out = fa.fused_self_attention(*leaves, mask, 12)
+        grads = torch.autograd.grad(out, leaves, gout)
+        box = ba.fused_box_attention(bq, bk, bv, gates)
+        normalized = image_prep.normalize_images_u8(pixels, torch.float32)
+    torch.cuda.synchronize(dev)
+    assert {name: cuda_lib.launch_counts[name] for name in (
+        "fused_self_attention", "fused_self_attention_bwd", "box_attention",
+        "device_normalize")} == dict.fromkeys(("fused_self_attention", "fused_self_attention_bwd",
+                                               "box_attention", "device_normalize"), 1)
+    assert out.device == box.device == normalized.device == dev
+    torch.testing.assert_close(out, fa.attention_reference(q, k, v, mask, 12), rtol=0,
+                               atol=1e-5)
+    for got, want in zip(grads, fa.attention_backward_reference(q, k, v, mask, gout, 12)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    torch.testing.assert_close(box, ba.box_attention_reference(bq, bk, bv, gates), rtol=0,
+                               atol=1e-5)
+    torch.testing.assert_close(normalized,
+                               image_prep.normalize_images_u8_reference(pixels, torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_registered_ops_launch_the_kernels(cuda, dtype):
+    """Without autograd the wrappers call the registered ops, whose CUDA
+    implementations are the kernels' launches (what an exported bundle
+    runs)."""
+    g = torch.Generator(cuda).manual_seed(12)
+    q, k, v = (torch.randn(4, 170, 768, device=cuda, generator=g).to(dtype) for _ in range(3))
+    mask = torch.zeros(4, 170, device=cuda)
+    bq, bk, bv = (torch.randn(56, 4, 96, device=cuda, generator=g).to(dtype) for _ in range(3))
+    gates = torch.rand(56, 4, 4, device=cuda, generator=g).to(dtype)
+    cuda_lib.reset_launch_counts()
+    with torch.no_grad():
+        out = fa.fused_self_attention(q, k, v, mask, 12)
+        box = ba.fused_box_attention(bq, bk, bv, gates)
+    direct = torch.ops.macsa_tpu_torch.fused_self_attention(q, k, v, mask, 12, 0.0, 0)
+    direct_box = torch.ops.macsa_tpu_torch.box_attention(bq, bk, bv, gates)
+    torch.cuda.synchronize()
+    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert dict(cuda_lib.launch_counts) == {"fused_self_attention": 2,
+                                            f"fused_self_attention.{variant}": 2,
+                                            "box_attention": 2}
+    assert torch.equal(out, direct) and torch.equal(box, direct_box)
+    with pytest.raises(ValueError):  # the CUDA implementation checks what the kernel takes
+        torch.ops.macsa_tpu_torch.fused_self_attention(q[:, :, :96], k[:, :, :96],
+                                                       v[:, :, :96], mask, 12, 0.0, 0)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_normalize_kernels_match_plain(cuda, dtype):
     rng = np.random.default_rng(2)

@@ -15,8 +15,9 @@ pipeline and the CLI.
   stack at 768; the test narrows both to 32 through the tokenizer's
   `config.json` and a config hook, and the JAX taggers' ResNet-152 to a
   small ResNet, so that the CPU can afford it.)
-* The port CLI runs on the card unless told otherwise, and refuses
-  `--bundle` with its reason.
+* The port CLI runs on the card unless told otherwise, and takes exactly
+  one of `--checkpoint` and `--bundle` (the bundle path itself:
+  `tests/test_torch_port_export.py`).
 """
 
 import dataclasses
@@ -281,7 +282,7 @@ def test_cli_runs_on_the_card_unless_told_otherwise_and_refuses_bundle(served):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(args)
-    with pytest.raises(NotImplementedError, match="torch.export"):
+    with pytest.raises(SystemExit):  # --checkpoint and --bundle together
         cli.main(args + ["--device", "cpu", "--bundle", "some/bundle"])
     with pytest.raises(ValueError, match="needs a CUDA device"):
         cli.main(args + ["--device", "cpu", "--fused_attention", "on"])

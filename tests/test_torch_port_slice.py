@@ -46,7 +46,8 @@ SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attentio
                  "models.mde", "models.aspect_classifier", "tools.classifier_io",
                  "tools.image_categories", "tools.roi_categories", "inference.pipeline",
                  "inference.cli", "models.baselines", "models.catr", "data.baselines",
-                 "train.baseline_steps", "train.train_baselines", "tools.generate_captions")
+                 "train.baseline_steps", "train.train_baselines", "tools.generate_captions",
+                 "ops", "inference.export", "parallel", "parallel.mesh")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
