@@ -70,6 +70,11 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
   crops a review: a gradient and logit check in f32 against the plain path,
   timed bf16 steps at batch 8, `train/train_baselines.main` for one epoch
   with dev and test, EF-CapTr on the captions just written),
+* tensor parallelism at (dp 1, mp 2): two ranks over gloo on the one card,
+  each with half of every sharded tensor and K1/K1b on 6 of the 12 heads
+  (K1 and K1b also held to their plain versions at that [48, 170, 384]):
+  2 f32 and 2 bf16 full-width fine-tune steps and one Phase-1 step against
+  one process, then `finetune.main --mp 2` for one bf16 epoch,
 * and, at the end, reads the device time of K1's and SDPA's backward,
 and checks that each path went through its kernels.  Each phase prints
 its lines; any failure raises and the exit code is not 0.  The
@@ -2152,14 +2157,32 @@ def phase_k1_baseline_shapes(dev, cuda_lib, fa) -> dict:
     """K1's forward and backward against their plain versions at the
     baselines' shapes: EF-CapTrRoBERTa's [48, 256, 768] (`--max_cap_length
     256`: bf16's forward on the tensor cores, its backward, past 192 rows,
-    on the CUDA cores), f32 and bf16, rates 0 and 0.1, with the tolerances
-    of phases k1 and k1_bwd; each timed beside its bound, its plain version
-    and SDPA (the forward) or SDPA's backward through autograd (rate 0).
+    on the CUDA cores) (`k1_at_shape`)."""
+    return k1_at_shape(dev, cuda_lib, fa, 256, 12, "EF-CapTr shape",
+                       {torch.float32: "simt", torch.bfloat16: "simt"}, 29, 11)
+
+
+def phase_k1_tp_shapes(dev, cuda_lib, fa) -> dict:
+    """K1's forward and backward against their plain versions at one mp
+    rank's share of the text encoder under tensor parallelism at mp 2 (phase
+    tp): [48, 170, 384], 6 heads of 64 (bf16 on the tensor cores both ways,
+    f32 on the CUDA cores) (`k1_at_shape`)."""
+    return k1_at_shape(dev, cuda_lib, fa, 170, 6, "mp 2 rank's shape",
+                       {torch.float32: "simt", torch.bfloat16: "wgmma"}, 31, 13)
+
+
+def k1_at_shape(dev, cuda_lib, fa, l: int, h: int, label: str, want_bwd: dict,
+                data_seed: int, seed: int) -> dict:
+    """K1's forward and backward against their plain versions at [48, l,
+    h * 64], f32 and bf16, rates 0 and 0.1, with the tolerances of phases k1
+    and k1_bwd, the backward on the `want_bwd` variant of each dtype; each
+    timed beside its bound, its plain version and SDPA (the forward) or
+    SDPA's backward through autograd (rate 0).
     -> {"out", "grad": worst absolute errors, (dtype, rate): times}."""
-    b, l, h, d, seed = BATCH * NUM_ASPECTS, 256, 12, 64, 11
+    b, d = BATCH * NUM_ASPECTS, 64
     fwd_tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of max|ref|
-    g = torch.Generator(dev).manual_seed(29)
+    g = torch.Generator(dev).manual_seed(data_seed)
     lens = torch.randint(24, l + 1, (b,), device=dev, generator=g)
     lens[:8] = l
     mask = torch.zeros(b, l, device=dev).masked_fill(
@@ -2169,7 +2192,7 @@ def phase_k1_baseline_shapes(dev, cuda_lib, fa) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, gout))
         fwd_v, bwd_v = fa.attention_variant(dtype, d, l), fa.attention_variant(dtype, d, l, True)
-        if (fwd_v, bwd_v) != (K1_VARIANT[dtype], "simt"):
+        if (fwd_v, bwd_v) != (K1_VARIANT[dtype], want_bwd[dtype]):
             raise AssertionError(f"K1 [{b},{l},{h * d}] {dtype}: variants {fwd_v}, {bwd_v}")
         for rate in (0.0, 0.1):
             leaves = [x.clone().requires_grad_(True) for x in (qc, kc, vc)]
@@ -2218,7 +2241,7 @@ def phase_k1_baseline_shapes(dev, cuda_lib, fa) -> dict:
                     torch.autograd.grad, lib, leaves, g4, retain_graph=True), iters=50, warmup=5)
             report[(dtype, rate)] = times
             lib_text = lambda key: ("none" if times[key] is None else f"{times[key]:.4f}")
-            print(f"phase k1 {str(dtype)[6:]} EF-CapTr shape [{b},{l},{h * d}] h={h} mask "
+            print(f"phase k1 {str(dtype)[6:]} {label} [{b},{l},{h * d}] h={h} mask "
                   f"finfo.min rate {rate}: errors "
                   + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
                   + f" (out at rate 0 absolute, atol {fwd_tol[dtype]}; else of max|ref|, tol "
@@ -2647,10 +2670,10 @@ def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out,
 DDP_WORLD = 2
 
 
-def ddp_model(dev, config, fcmf, layers, seed: int):
-    """The full-width FCMF of phase ddp: f32, dropout 0, K1 on, random
+def ddp_model(dev, config, fcmf, layers, seed: int, dtype: str = "float32"):
+    """The full-width FCMF of phases ddp and tp: dropout 0, K1 on, random
     biases (no tensor starts at zero, so each has a scale to be held to)."""
-    kw = dict(dtype="float32", fused_attention=True, hidden_dropout_prob=0.0,
+    kw = dict(dtype=dtype, fused_attention=True, hidden_dropout_prob=0.0,
               attention_probs_dropout_prob=0.0)
     cfg = config.FCMFConfig(model=config.ModelConfig(**kw), text=config.TextEncoderConfig(**kw))
     model = fcmf.FCMF(cfg, device=dev)
@@ -2663,17 +2686,20 @@ def ddp_model(dev, config, fcmf, layers, seed: int):
     return cfg, model
 
 
-def ddp_steps(dev, rank: int, world: int, n_steps: int = 2):
-    """`n_steps` fine-tune steps at full width on cached features (f32,
-    dropout 0, AdamW with the driver's defaults) on this rank's share of a
-    batch of 8 made from a seed.  -> (global losses, the trained model)."""
+def ddp_steps(dev, n_steps: int = 2, dtype: str = "float32"):
+    """`n_steps` fine-tune steps at full width on cached features (dropout
+    0, AdamW with the driver's defaults) on this data-parallel rank's share
+    of a batch of 8 made from a seed, the model sharded over the mp ranks
+    where there are several (`parallel.mesh`; one process: the whole batch,
+    the whole model).  -> (global losses, the trained model)."""
     from macsa_tpu_torch import config
     from macsa_tpu_torch.models import fcmf, layers, resnet
-    from macsa_tpu_torch.parallel import mesh
+    from macsa_tpu_torch.parallel import mesh, sharding
     from macsa_tpu_torch.train import optim, steps
     from macsa_tpu_torch.train.state import TrainState
-    cfg, model = ddp_model(dev, config, fcmf, layers, 51)
+    cfg, model = ddp_model(dev, config, fcmf, layers, 51, dtype)
     mesh.replicate(model)
+    sharding.shard_model_(model)
     g = torch.Generator(dev).manual_seed(52)
     batch = serving_batch(dev, cfg)
     for key in ("images", "roi_images"):
@@ -2682,7 +2708,7 @@ def ddp_steps(dev, rank: int, world: int, n_steps: int = 2):
     batch["roi"] = torch.randn(BATCH, cfg.num_imgs, cfg.num_roi, 2048, device=dev, generator=g)
     batch["labels"] = torch.randint(0, cfg.num_labels, (BATCH, NUM_ASPECTS), device=dev,
                                     generator=g)
-    per = BATCH // world
+    per, rank = BATCH // mesh.dp_size(), mesh.dp_index()
     local = {k: v[rank * per:(rank + 1) * per] for k, v in batch.items()}
     visual = resnet.VisualFeatures(config.ResNetConfig(stage_sizes=(1, 1, 1, 1)), device=dev)
     # the driver's two rates, constant: both updates move the model.  Adam's
@@ -2695,6 +2721,18 @@ def ddp_steps(dev, rank: int, world: int, n_steps: int = 2):
     step = steps.make_finetune_train_step(state)
     losses = [float(mesh.all_mean(step(local, 0)["loss"])) for _ in range(n_steps)]
     return losses, model
+
+
+def param_gap(params: dict, want: dict) -> tuple:
+    """The worst parameter's largest difference over its tensor's largest
+    value.  -> (gap, name)."""
+    worst, worst_name = 0.0, ""
+    for name, p in params.items():
+        ref = want[name].to(p.device)
+        rel = float((p - ref).abs().max() / ref.abs().max().clamp(min=1e-30))
+        if rel >= worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
 
 
 def ddp_worker(rank: int, port: int, work: str, data: str, out: str) -> None:
@@ -2714,16 +2752,11 @@ def ddp_worker(rank: int, port: int, work: str, data: str, out: str) -> None:
                             world_size=DDP_WORLD)
     try:
         cuda_lib.reset_launch_counts()
-        losses, model = ddp_steps(dev, rank, DDP_WORLD)
+        losses, model = ddp_steps(dev)
         torch.cuda.synchronize()
         step_launches = dict(cuda_lib.launch_counts)
         ref = torch.load(os.path.join(work, "ddp_reference.pt"), map_location=dev)
-        worst, worst_name = 0.0, ""
-        for name, p in model.state_dict().items():
-            want = ref["params"][name]
-            rel = float((p - want).abs().max() / want.abs().max().clamp(min=1e-30))
-            if rel >= worst:
-                worst, worst_name = rel, name
+        worst, worst_name = param_gap(model.state_dict(), ref["params"])
         del model, ref
         torch.cuda.empty_cache()
         cuda_lib.reset_launch_counts()
@@ -2786,7 +2819,7 @@ def phase_ddp(dev, card, cuda_lib, finetune, data, work):
         raise AssertionError(f"phase ddp (a): NCCL world of one {with_group} vs {without}")
 
     # (b) the single-process reference the ranks are held against
-    ref_losses, model = ddp_steps(dev, 0, 1)
+    ref_losses, model = ddp_steps(dev)
     torch.save({"losses": ref_losses,
                 "params": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
                os.path.join(work, "ddp_reference.pt"))
@@ -2860,6 +2893,213 @@ def phase_ddp(dev, card, cuda_lib, finetune, data, work):
     return dict(launches)
 
 
+TP_WORLD = 2
+
+
+def tp_phase1_step(dev):
+    """One Phase-1 step at full width (f32, dropout 0, K1 on, the tied
+    table of 15004 rows: 7502 a rank at mp 2) at batch 16 on cached
+    features, the model sharded over the mp ranks where there are several.
+    -> (the loss, the trained model)."""
+    from macsa_tpu_torch import config
+    from macsa_tpu_torch.models import layers, resnet, seq2seq
+    from macsa_tpu_torch.parallel import mesh, sharding
+    from macsa_tpu_torch.train import optim, steps
+    from macsa_tpu_torch.train.state import TrainState
+    cfg, dec_cfg, model, _ = build_seq2seq(dev, config, seq2seq, resnet, "float32", True, 0.0)
+    g = torch.Generator(dev).manual_seed(61)
+    layers.init_weights(model, g, cfg.model.initializer_range)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0.0, cfg.model.initializer_range, generator=g)
+    mesh.replicate(model)
+    sharding.shard_model_(model)
+    batch = pretrain_batch(dev, cfg, dec_cfg, with_pixels=False)
+    batch["grid"] = torch.randn(P1_BATCH, cfg.num_imgs, 49, 2048, device=dev, generator=g)
+    batch["roi"] = torch.randn(P1_BATCH, cfg.num_imgs, cfg.num_roi, 2048, device=dev,
+                               generator=g)
+    visual = resnet.VisualFeatures(config.ResNetConfig(stage_sizes=(1, 1, 1, 1)), device=dev)
+    state = TrainState.create(model, visual, optim.AdamW(model, 7e-5, eps=1e-4))
+    loss = float(mesh.all_mean(steps.make_pretrain_train_step(state)(batch, 0)["loss"]))
+    return loss, model
+
+
+def tp_worker(rank: int, port: int, work: str, data: str, out: str) -> None:
+    """One of phase tp's two ranks at (dp 1, mp 2): gloo over CUDA tensors,
+    both on the one card.  2 full-width f32 steps, 2 bf16 steps, one
+    Phase-1 step, `finetune.main --mp 2` for one bf16 epoch.  Its numbers
+    go to `out`."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as dist
+    from macsa_tpu_torch.ops import cuda_lib
+    from macsa_tpu_torch.parallel import mesh, sharding
+    from macsa_tpu_torch.train import finetune
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=TP_WORLD)
+    try:
+        mesh.init_model_parallel(TP_WORLD)
+        got = {"layout": [mesh.dp_size(), mesh.dp_index(), mesh.mp_size(), mesh.mp_index()]}
+        ref = torch.load(os.path.join(work, "ddp_reference.pt"))
+        p1_ref = torch.load(os.path.join(work, "tp_reference.pt"))
+        for dtype in ("float32", "bfloat16"):
+            cuda_lib.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses, model = ddp_steps(dev, dtype=dtype)
+            torch.cuda.synchronize()
+            got[dtype] = {"losses": losses, "s": time.perf_counter() - t0,
+                          "launches": dict(cuda_lib.launch_counts)}
+            if dtype == "float32":
+                got[dtype]["param_gap"] = param_gap(sharding.whole_state_dict(model),
+                                                    ref["params"])
+            del model
+            torch.cuda.empty_cache()
+        cuda_lib.reset_launch_counts()
+        loss, model = tp_phase1_step(dev)
+        got["phase1"] = {"loss": loss,
+                         "param_gap": param_gap(sharding.whole_state_dict(model),
+                                                p1_ref["params"]),
+                         "launches": dict(cuda_lib.launch_counts),
+                         "table_rows": int(model.shared_embedding.shape[0])}
+        del model, ref, p1_ref
+        torch.cuda.empty_cache()
+        cuda_lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = finetune.main(ddp_driver_argv(data, os.path.join(work, "tp_driver"), BATCH,
+                                               "--mp", str(TP_WORLD)))
+        torch.cuda.synchronize()
+        got["driver_s"] = time.perf_counter() - t0
+        got["driver"] = {k: result["epochs"][0][k]
+                         for k in ("steps", "losses", "kernel_launches", "seconds")}
+        got["driver_launches"] = dict(cuda_lib.launch_counts)
+        with open(out, "w") as f:
+            json.dump(got, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(dev, card, cuda_lib, data, work):
+    """Tensor parallelism (`parallel/sharding.py`) at (dp 1, mp 2) on the
+    one card: two processes over gloo with CUDA tensors (NCCL refuses two
+    ranks on one device), each holding its half of every sharded tensor
+    and running K1 and K1b on 6 of the 12 heads.  Against one process: 2
+    full-width f32 steps (TF32 off, dropout 0, cached features) held to
+    phase ddp's saved run, losses within 1e-4 and every parameter within
+    1e-3 of its tensor's largest; 2 bf16 steps against bf16 at mp 1, losses
+    within 2e-2 relative, K1 and K1b on their tensor-core variant; one
+    Phase-1 step at batch 16 (the tied table at 7502 rows a rank), as the
+    f32 steps are held.  Then `finetune.main --mp 2` for one bf16 epoch:
+    both ranks' losses, rank 0 alone writes.  The two processes share one
+    card: their times are not a speed of tensor parallelism.
+    -> launches on the ranks' paths."""
+    bf16_ref, model = ddp_steps(dev, dtype="bfloat16")
+    del model
+    p1_loss, model = tp_phase1_step(dev)
+    torch.save({"loss": p1_loss,
+                "params": {k: v.detach().cpu() for k, v in model.state_dict().items()}},
+               os.path.join(work, "tp_reference.pt"))
+    del model
+    torch.cuda.empty_cache()
+    f32_ref = torch.load(os.path.join(work, "ddp_reference.pt"))["losses"]  # phase ddp's
+
+    port = free_port()
+    ctx = torch.multiprocessing.get_context("spawn")
+    outs = [os.path.join(work, f"tp_rank{r}.json") for r in range(TP_WORLD)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=tp_worker, args=(r, port, work, data, outs[r]))
+             for r in range(TP_WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_s = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase tp ranks exited {[p.exitcode for p in procs]}")
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    per_step = lambda variant: {"fused_self_attention": 12,  # noqa: E731
+                                f"fused_self_attention.{variant}": 12,
+                                "fused_self_attention_bwd": 12,
+                                f"fused_self_attention_bwd.{variant}": 12}
+    steps_c = 16 // BATCH
+    want_c = {"device_normalize": 2 * steps_c}
+    for name in ("fused_self_attention", "fused_self_attention_bwd"):
+        want_c.update({name: 12 * steps_c, f"{name}.wgmma": 12 * steps_c})
+    for r, got in enumerate(ranks):
+        if got["layout"] != [1, 0, TP_WORLD, r]:
+            raise AssertionError(f"phase tp rank {r} layout {got['layout']}")
+        f32, bf16, p1 = got["float32"], got["bfloat16"], got["phase1"]
+        gap = max(abs(a - b) for a, b in zip(f32["losses"], f32_ref))
+        if not gap <= 1e-4 or not f32["param_gap"][0] <= 1e-3:
+            raise AssertionError(f"phase tp f32 rank {r}: losses {f32['losses']} vs mp 1 "
+                                 f"{f32_ref}, parameters {f32['param_gap']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(bf16["losses"], bf16_ref))
+        if not rel <= 2e-2:
+            raise AssertionError(f"phase tp bf16 rank {r}: losses {bf16['losses']} vs mp 1 "
+                                 f"{bf16_ref}")
+        if f32["launches"] != {k: 2 * v for k, v in per_step("simt").items()} or \
+                bf16["launches"] != {k: 2 * v for k, v in per_step("wgmma").items()}:
+            raise AssertionError(f"phase tp rank {r} launches {f32['launches']}, "
+                                 f"{bf16['launches']}")
+        if not abs(p1["loss"] - p1_loss) <= 1e-4 or not p1["param_gap"][0] <= 1e-3 or \
+                p1["table_rows"] != 15004 // TP_WORLD or \
+                p1["launches"] != per_step("simt"):
+            raise AssertionError(f"phase tp Phase 1 rank {r}: {p1} vs mp 1 loss {p1_loss}")
+        if got["driver"]["steps"] != steps_c or got["driver"]["kernel_launches"] != want_c:
+            raise AssertionError(f"phase tp driver rank {r}: {got['driver']}")
+    drivers = [got["driver"] for got in ranks]
+    if drivers[0]["losses"] != drivers[1]["losses"]:
+        raise AssertionError(f"phase tp driver: the mp ranks' losses differ {drivers}")
+    out_c = os.path.join(work, "tp_driver")
+    with open(os.path.join(out_c, "metrics.jsonl")) as f:
+        lines = f.read().splitlines()
+    if not os.path.isfile(os.path.join(out_c, "last.pt")) or len(lines) != steps_c + 1:
+        raise AssertionError(f"phase tp driver: {sorted(os.listdir(out_c))}, {len(lines)} "
+                             f"metric lines (rank 0 alone writes one a step and one an epoch)")
+    saved = torch.load(os.path.join(out_c, "last.pt"), map_location="cpu", weights_only=True)
+    if saved["model"]["encoder.bert.cell.encoder.layer.0.attention.self.query.weight"].shape \
+            != (768, 768):
+        raise AssertionError("phase tp driver: the checkpoint does not hold whole tensors")
+    del saved
+    launches = collections.Counter()
+    for got in ranks:
+        for part in (got["float32"], got["bfloat16"], got["phase1"]):
+            launches.update(part["launches"])
+        launches.update(got["driver_launches"])
+    r0 = ranks[0]
+    print(f"phase tp (dp 1, mp 2) 2 ranks over gloo on one card ({card}): f32 losses "
+          + " ".join(f"{x:.6f}" for x in r0["float32"]["losses"]) + ", mp 1 "
+          + " ".join(f"{x:.6f}" for x in f32_ref) + "; parameters within "
+          f"{max(g['float32']['param_gap'][0] for g in ranks):.3g} of each tensor's largest; "
+          f"the model's build and 2 steps {r0['float32']['s']:.2f} s")
+    print(f"phase tp bf16 losses " + " ".join(f"{x:.5f}" for x in r0["bfloat16"]["losses"])
+          + ", mp 1 " + " ".join(f"{x:.5f}" for x in bf16_ref)
+          + f"; K1 and K1b at 6 heads a rank on wgmma, {r0['bfloat16']['launches']}; the "
+          f"model's build and 2 steps {r0['bfloat16']['s']:.2f} s (two processes share the "
+          f"card: not a speed of TP)")
+    print(f"phase tp Phase 1 at batch 16, table {r0['phase1']['table_rows']} rows a rank: loss "
+          f"{r0['phase1']['loss']:.6f}, mp 1 {p1_loss:.6f}; parameters within "
+          f"{max(g['phase1']['param_gap'][0] for g in ranks):.3g}")
+    print(f"phase tp finetune.main --mp 2: {drivers[0]['steps']} steps of 8 in "
+          f"{drivers[0]['seconds']:.1f} s, losses "
+          + " ".join(f"{x:.4f}" for x in drivers[0]["losses"])
+          + f" on both ranks; rank 0 alone wrote {sorted(os.listdir(out_c))}, whole tensors; "
+          f"both rank processes {ranks_s:.1f} s with their start; launches {dict(launches)}")
+    return dict(launches)
+
+
 def main() -> int:
     sys.path.insert(0, REPO)
     from macsa_tpu_torch import config
@@ -2909,6 +3149,7 @@ def main() -> int:
     k1_bwd = run(phase_k1_bwd, dev, cuda_lib, fa)
     k1_phase1 = run(phase_k1_phase1_shapes, dev, cuda_lib, fa)
     k1_baselines = run(phase_k1_baseline_shapes, dev, cuda_lib, fa)
+    k1_tp = run(phase_k1_tp_shapes, dev, cuda_lib, fa)
     k3 = run(phase_k3, dev, ba, cuda_lib)
     k4, k4_launches = run(phase_k4, dev, cuda_lib, fr)
     k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
@@ -2935,6 +3176,7 @@ def main() -> int:
         bundle_launches, *_ = run(phase_bundle, dev, smi, cuda_lib, cli, export, config, fa,
                                   ba, data, ft_out, taggers, work)
         ddp_launches = run(phase_ddp, dev, smi, cuda_lib, finetune, data, work)
+        tp_launches = run(phase_tp, dev, smi, cuda_lib, data, work)
         captions = run(phase_captions, dev, smi, data, work)
         baseline_launches = run(phase_baselines, dev, smi, cuda_lib, data, captions, work)
     run(phase_k1_bwd_device, k1_bwd)
@@ -2957,23 +3199,24 @@ def main() -> int:
     bf16 = torch.bfloat16
     k1_bwd0 = k1_bwd[("-10000", bf16, 0.0)]  # rate 0: the case SDPA's backward is timed at
     k1_err = max([r["err"] for r in k1.values()] + [r["err"]["out"] for r in k1_bwd.values()]
-                 + [k1_phase1["out"], k1_baselines["out"]])
+                 + [k1_phase1["out"], k1_baselines["out"], k1_tp["out"]])
     k1b_err = max([max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values()]
-                  + [k1_phase1["grad"], k1_baselines["grad"]])
+                  + [k1_phase1["grad"], k1_baselines["grad"], k1_tp["grad"]])
     phase1 = (step_launches, decode_launches, pretrain_launches)
     later = (ft_cnn_launches, mde_launches, serve_launches, bundle_launches, ddp_launches,
-             baseline_launches)
+             tp_launches, baseline_launches)
 
     def later_launches(name):
         """Launches on Phase 1's paths, and on the fine_tune_cnn, mde,
-        serve, bundle, ddp and baselines phases'."""
+        serve, bundle, ddp, tp and baselines phases'."""
         return sum(path.get(name, 0) for path in phase1 + later)
 
-    def at_256(which: str) -> dict:
-        """K1's (`fwd`) or K1b's (`bwd`) bf16 times at EF-CapTr's [48, 256,
-        768], rate 0: the variant it ran, its time, plain, bound, SDPA's."""
-        t = k1_baselines[(bf16, 0.0)]
-        return {"shape": [BATCH * NUM_ASPECTS, 256, 768], "variant": t[f"{which}_variant"],
+    def at_shape(which: str, report: dict, rows: int, width: int) -> dict:
+        """K1's (`fwd`) or K1b's (`bwd`) bf16 times at [48, rows, width],
+        rate 0 (EF-CapTr's rows; an mp 2 rank's heads): the variant it ran,
+        its time, plain, bound, SDPA's."""
+        t = report[(bf16, 0.0)]
+        return {"shape": [BATCH * NUM_ASPECTS, rows, width], "variant": t[f"{which}_variant"],
                 "ms": t[f"{which}_ms"], "plain_ms": t[f"{which}_plain_ms"],
                 "bound_ms": t[f"{which}_bound"]["bound_ms"],
                 "bound_by": t[f"{which}_bound"]["bound_by"],
@@ -3006,7 +3249,9 @@ def main() -> int:
               "tools_dev/fused_resnet_experiment.py:208", fused_launches["fused_bottleneck"],
               max(r["err"] for r in k5.values()), k5[(3, bf16)]),
     ]
-    kernels[0]["at_256_rows"], kernels[1]["at_256_rows"] = at_256("fwd"), at_256("bwd")
+    for kernel, which in zip(kernels[:2], ("fwd", "bwd")):
+        kernel["at_256_rows"] = at_shape(which, k1_baselines, 256, 768)
+        kernel["at_mp2_rank"] = at_shape(which, k1_tp, 170, 384)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

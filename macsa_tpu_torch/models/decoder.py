@@ -31,7 +31,7 @@ The blocks run unrolled; the JAX package's scanned layout is not ported.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -39,6 +39,7 @@ from torch import nn
 from macsa_tpu_torch.config import DecoderConfig
 from macsa_tpu_torch.models import layers
 from macsa_tpu_torch.models.attention import PerHeadAttention
+from macsa_tpu_torch.parallel import sharding
 
 Cache = Dict[str, torch.Tensor]
 
@@ -142,7 +143,15 @@ class TransformerDecoderBlock(nn.Module):
 class TiedHead(nn.Module):
     """The vocabulary head `dense`: its weight is the token table (the same
     `nn.Parameter` object as the embedding's), its bias its own.  Runs in
-    f32 whatever the decoder's compute dtype."""
+    f32 whatever the decoder's compute dtype.
+
+    Vocab-parallel (`.tp`, the table split by rows over mp; the bias stays
+    whole, as JAX's `out_bias` is replicated): the rank computes its share
+    of the logits' columns from `local_inputs`, the training loss is
+    vocab-parallel (`seq2seq.tied_head_loss`), and `forward` gathers whole
+    rows for decoding."""
+
+    tp: Optional[sharding.Shard] = None
 
     def __init__(self, table: nn.Parameter, device=None):
         super().__init__()
@@ -152,8 +161,18 @@ class TiedHead(nn.Module):
     def init_weights_(self, generator: torch.Generator, std: float) -> None:
         self.bias.zero_()
 
+    def local_inputs(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(x, this rank's bias) for its share of the logits: both through
+        `copy_to_mp`, so each one's gradient is summed over the shares."""
+        x = sharding.copy_to_mp(x, self.tp)
+        bias = sharding.copy_to_mp(self.bias, self.tp)
+        return x, bias.narrow(0, self.tp.start, self.tp.length)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.float() @ self.weight.float().T + self.bias
+        if self.tp is None:
+            return x.float() @ self.weight.float().T + self.bias
+        x, bias = self.local_inputs(x)
+        return sharding.gather_vocab(x.float() @ self.weight.float().T + bias, self.tp)
 
 
 class IAOGDecoder(nn.Module):

@@ -16,7 +16,10 @@ Conventions shared by every module of the port:
   `load_state_dict`,
 * dropout sits where the JAX modules have it and is on only for a module
   in training mode that is handed a `DropoutRng`: every forward takes an
-  optional `rng`, and without one (serving) the module is deterministic.
+  optional `rng`, and without one (serving) the module is deterministic,
+* under tensor parallelism (`parallel/sharding.py`) a `Dense` or `Embed`
+  whose weight `shard_model_` split carries the `Shard` as `.tp` and runs
+  its Megatron form; `.tp` is None otherwise.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from torch import nn
 from macsa_tpu_torch.config import ModelConfig
 from macsa_tpu_torch.ops.fused_attention import (
     attention_core, fused_self_attention, merge_heads, split_heads)
+from macsa_tpu_torch.parallel import sharding
 
 
 @dataclasses.dataclass
@@ -39,18 +43,27 @@ class DropoutRng:
     """The randomness of one training step's dropout, from explicit
     generators only: `device` draws the elementwise masks on the
     activations' device, `host` draws the seed of each attention-kernel
-    call on the host, so no call waits on the device for it."""
+    call on the host, so no call waits on the device for it.
+
+    `dp_index` is the data-parallel rank's index (`parallel.mesh.dp_index`):
+    each data-parallel rank draws its own masks, as JAX draws one mask over
+    the global batch, while the mp ranks of one index draw the same ones,
+    so an activation replicated over mp stays replicated after dropout."""
 
     device: torch.Generator
     host: torch.Generator
+    dp_index: int = 0
 
     @classmethod
-    def for_step(cls, seed: int, step: int, device) -> "DropoutRng":
+    def for_step(cls, seed: int, step: int, device, dp_index: int = 0) -> "DropoutRng":
         """Generators derived from (seed, step), as the JAX step folds the
-        step into its key (`jax.random.fold_in(rng, state.step)`)."""
-        dev_seed, host_seed = np.random.SeedSequence([seed, step]).generate_state(2)
+        step into its key (`jax.random.fold_in(rng, state.step)`), and from
+        `dp_index` where it is not 0 (rank 0, and a world of one, draw what
+        (seed, step) alone gives)."""
+        entropy = [seed, step] if dp_index == 0 else [seed, step, dp_index]
+        dev_seed, host_seed = np.random.SeedSequence(entropy).generate_state(2)
         return cls(torch.Generator(torch.device(device)).manual_seed(int(dev_seed)),
-                   torch.Generator().manual_seed(int(host_seed)))
+                   torch.Generator().manual_seed(int(host_seed)), dp_index)
 
     def keep_mask(self, shape, rate: float, device) -> torch.Tensor:
         return torch.rand(shape, generator=self.device, device=device) >= rate
@@ -77,7 +90,12 @@ ACT2FN: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 
 
 class Dense(nn.Module):
-    """y = x W^T + b with f32 parameters, computed in `compute_dtype`."""
+    """y = x W^T + b with f32 parameters, computed in `compute_dtype`.
+    Column-parallel (`.tp.kind == "column"`): the rank's output features,
+    its input through `copy_to_mp`; row-parallel: the rank's input
+    features, the products summed over mp, then the whole bias."""
+
+    tp: Optional[sharding.Shard] = None
 
     def __init__(self, in_features: int, out_features: int,
                  compute_dtype: torch.dtype = torch.float32, device=None):
@@ -92,13 +110,21 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.tp is not None:
+            if self.tp.kind == sharding.ROW:
+                y = sharding.reduce_from_mp(F.linear(x.to(dt), self.weight.to(dt)), self.tp)
+                return y + self.bias.to(dt)
+            x = sharding.copy_to_mp(x, self.tp)
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class Embed(nn.Module):
     """Lookup table with f32 parameters; rows come out in `compute_dtype`.
     `weight` hands in a table shared with other modules (the Phase-1 token
-    table, tied three ways) instead of allocating one."""
+    table, tied three ways) instead of allocating one.  Vocab-parallel
+    (`.tp`): the rank's rows, summed over mp."""
+
+    tp: Optional[sharding.Shard] = None
 
     def __init__(self, num_embeddings: int, dim: int,
                  compute_dtype: torch.dtype = torch.float32, device=None,
@@ -114,6 +140,9 @@ class Embed(nn.Module):
         self.weight.normal_(0.0, std, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return sharding.vocab_parallel_embedding(ids, self.weight, self.tp).to(
+                self.compute_dtype)
         return F.embedding(ids, self.weight).to(self.compute_dtype)
 
 
@@ -162,7 +191,15 @@ class BertSelfAttention(nn.Module):
     self-attention (Lq == Lk >= 32) under a [B, 1, 1, Lk] padding mask, i.e.
     the text-encoder blocks, with the probs dropout inside the kernel.
     Other call sites (CLS-query branches, the 15-token fusion,
-    cross-attention) run the plain math."""
+    cross-attention) run the plain math.
+
+    Under tensor parallelism (the projections column-parallel) the module
+    runs on this mp rank's `num_attention_heads / mp` heads, K1 and K1b
+    included, its output the row-parallel `output.dense`'s input.  K1's
+    seed is offset by the linear mesh index dp_index * mp + mp_index, as
+    JAX's sharded K1 offsets it (`macsa_tpu/ops/fused_attention.py:286-291`;
+    0 in a world of one); the plain path draws the whole-head dropout mask
+    and keeps the rank's heads, so its masks are mp 1's."""
 
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
@@ -176,7 +213,9 @@ class BertSelfAttention(nn.Module):
                 additive_mask: Optional[torch.Tensor],
                 rng: Optional[DropoutRng] = None) -> torch.Tensor:
         cfg = self.config
-        n = cfg.num_attention_heads
+        tp = self.query.tp
+        mp, mp_index = (1, 0) if tp is None else (tp.size, tp.index)
+        n = cfg.num_attention_heads // mp
         rng = rng if self.training else None
         rate = 0.0 if rng is None else cfg.attention_probs_dropout_prob
         qr, kr, vr = self.query(q_states), self.key(kv_states), self.value(kv_states)
@@ -185,11 +224,13 @@ class BertSelfAttention(nn.Module):
                 and additive_mask.shape[2] == 1
                 and qr.shape[1] == kr.shape[1] and qr.shape[1] >= 32):
             mask_row = additive_mask[:, 0, 0, :].float().contiguous()
-            seed = rng.kernel_seed() if rate > 0.0 else 0
+            seed = rng.kernel_seed() + rng.dp_index * mp + mp_index if rate > 0.0 else 0
             return fused_self_attention(qr, kr, vr, mask_row, n, rate, seed)
         keep = None
         if rate > 0.0:
-            keep = rng.keep_mask((qr.shape[0], n, qr.shape[1], kr.shape[1]), rate, qr.device)
+            keep = rng.keep_mask((qr.shape[0], cfg.num_attention_heads, qr.shape[1],
+                                  kr.shape[1]), rate, qr.device)
+            keep = keep[:, mp_index * n:(mp_index + 1) * n]
         ctx = attention_core(split_heads(qr, n), split_heads(kr, n),
                              split_heads(vr, n), additive_mask, keep, rate)
         return merge_heads(ctx)

@@ -26,12 +26,14 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from macsa_tpu_torch.config import DecoderConfig, FCMFConfig
 from macsa_tpu_torch.models import layers
-from macsa_tpu_torch.models.decoder import IAOGDecoder
+from macsa_tpu_torch.models.decoder import IAOGDecoder, TiedHead
 from macsa_tpu_torch.models.fcmf import FCMFEncoder
+from macsa_tpu_torch.parallel import sharding
 
 TIED_TABLE_NAMES = ("decoder.embedding.weight", "decoder.dense.weight",
                     "encoder.bert.cell.embeddings.word_embeddings.weight")
@@ -210,11 +212,19 @@ class _ChunkedHeadLoss(torch.autograd.Function):
     """Mean CE over the valid tokens of the tied vocabulary head, its
     logits made one vocabulary chunk at a time in the forward (online
     logsumexp) and made again chunk by chunk in the backward: no [N, V]
-    tensor is ever held."""
+    tensor is ever held.
+
+    With a `shard` (tensor parallelism) `emb` and `bias` are this rank's
+    rows of the table and the bias: each rank's online (max, sum-exp) and
+    its label logits are merged over mp (all_reduce max, then sum), as is
+    the running argmax (the largest value, the first index on ties), so
+    every rank returns the whole loss; the backward makes the rank's
+    chunks again against the merged logsumexp."""
 
     @staticmethod
-    def forward(ctx, x, emb, bias, safe, valid, count, chunk_size):
+    def forward(ctx, x, emb, bias, safe, valid, count, chunk_size, shard):
         n, v = x.shape[0], emb.shape[0]
+        start = 0 if shard is None else shard.start
         m = torch.full((n,), -torch.inf, device=x.device)
         s = torch.zeros(n, device=x.device)
         best_val = torch.full((n,), -torch.inf, device=x.device)
@@ -227,13 +237,26 @@ class _ChunkedHeadLoss(torch.autograd.Function):
             m = m_new
             better = c_max > best_val  # strict: an earlier chunk keeps a tie
             best_val = torch.where(better, c_max, best_val)
-            best_idx = torch.where(better, c_arg + c0, best_idx)
-        lse = m + torch.log(s)
-        # label logit via row gather: an [N, H] product, not [N, V]
-        label_logit = (x * emb[safe]).sum(1) + bias[safe]
+            best_idx = torch.where(better, c_arg + c0 + start, best_idx)
+        if shard is None:
+            lse = m + torch.log(s)
+            # label logit via row gather: an [N, H] product, not [N, V]
+            label_logit = (x * emb[safe]).sum(1) + bias[safe]
+        else:
+            m_all = sharding.all_reduce_(m.clone(), shard, dist.ReduceOp.MAX)
+            s = sharding.all_reduce_(s * torch.exp(m - m_all), shard)
+            lse = m_all + torch.log(s)
+            local = safe - start
+            here = (local >= 0) & (local < v)
+            local = local.clamp(0, v - 1)
+            label_logit = sharding.all_reduce_(
+                torch.where(here, (x * emb[local]).sum(1) + bias[local], 0.0), shard)
+            top = sharding.all_reduce_(best_val.clone(), shard, dist.ReduceOp.MAX)
+            best_idx = sharding.all_reduce_(
+                torch.where(best_val == top, best_idx, shard.whole), shard, dist.ReduceOp.MIN)
         nll = torch.where(valid, lse - label_logit, 0.0)
         ctx.save_for_backward(x, emb, bias, safe, valid, lse, count)
-        ctx.chunk_size = chunk_size
+        ctx.chunk_size, ctx.start = chunk_size, start
         ctx.mark_non_differentiable(best_idx)
         return nll.sum() / count, best_idx
 
@@ -241,6 +264,7 @@ class _ChunkedHeadLoss(torch.autograd.Function):
     def backward(ctx, grad_loss, _grad_idx):
         x, emb, bias, safe, valid, lse, count = ctx.saved_tensors
         chunk_size, v = ctx.chunk_size, emb.shape[0]
+        safe = safe - ctx.start  # this rank's rows; labels elsewhere match no chunk
         coef = valid.to(x.dtype) / count * grad_loss  # d loss / d nll_n
         grad_x = torch.zeros_like(x)
         grad_emb, grad_bias = torch.empty_like(emb), torch.empty_like(bias)
@@ -255,13 +279,14 @@ class _ChunkedHeadLoss(torch.autograd.Function):
             grad_x += g @ e_c
             grad_emb[c0:c0 + chunk_size] = g.T @ x
             grad_bias[c0:c0 + chunk_size] = g.sum(0)
-        return grad_x, grad_emb, grad_bias, None, None, None, None
+        return grad_x, grad_emb, grad_bias, None, None, None, None, None
 
 
 def chunked_seq2seq_loss(hidden: torch.Tensor, embedding_table: torch.Tensor,
                          out_bias: torch.Tensor, labels: torch.Tensor,
                          ignore_index: int = -100, chunk_size: int = 8192,
-                         denominator: Optional[torch.Tensor] = None
+                         denominator: Optional[torch.Tensor] = None,
+                         shard: Optional[sharding.Shard] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CE + argmax over the weight-tied vocabulary head WITHOUT holding the
     [B, T, V] f32 logits, for the forward or for the backward.
@@ -273,12 +298,30 @@ def chunked_seq2seq_loss(hidden: torch.Tensor, embedding_table: torch.Tensor,
     the label's logit differentiates through a row gather.
 
     -> (mean-over-valid-token CE, argmax token ids [B, T]); the sum is
-    divided by `denominator` where one is given, as in `seq2seq_loss`."""
+    divided by `denominator` where one is given, as in `seq2seq_loss`.
+    With a `shard` the table and bias are this mp rank's rows and the loss
+    is vocab-parallel (`tied_head_loss` passes them)."""
     b, t, h = hidden.shape
     valid = (labels != ignore_index).reshape(-1)
     safe = torch.where(valid, labels.reshape(-1), 0).long()
     count = valid.sum().clamp(min=1) if denominator is None else denominator
     loss, best_idx = _ChunkedHeadLoss.apply(
         hidden.float().reshape(b * t, h), embedding_table.float(), out_bias.float(),
-        safe, valid, count, chunk_size)
+        safe, valid, count, chunk_size, shard)
     return loss, best_idx.reshape(b, t)
+
+
+def tied_head_loss(head: TiedHead, hidden: torch.Tensor, labels: torch.Tensor,
+                   vocab_chunk: int = 0, denominator: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(loss, argmax ids) of the decoder's hidden states [B, T, H] through
+    the tied head, by `chunked_seq2seq_loss` in chunks of `vocab_chunk`
+    rows.  Vocab-parallel when the head is (`head.tp`): each mp rank's rows
+    in chunks of `vocab_chunk` (0: its rows at once), merged over mp."""
+    if head.tp is None:
+        return chunked_seq2seq_loss(hidden, head.weight, head.bias, labels,
+                                    chunk_size=vocab_chunk, denominator=denominator)
+    hidden, bias = head.local_inputs(hidden)
+    return chunked_seq2seq_loss(hidden, head.weight, bias, labels,
+                                chunk_size=vocab_chunk or head.tp.length,
+                                denominator=denominator, shard=head.tp)

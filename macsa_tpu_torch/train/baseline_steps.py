@@ -18,6 +18,7 @@ import torch
 from macsa_tpu_torch.models.baselines import EFCapTrRoBERTa, MRoBERTa, TomBERT
 from macsa_tpu_torch.models.layers import DropoutRng
 from macsa_tpu_torch.models.resnet import VisualFeatures
+from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train.state import TrainState
 from macsa_tpu_torch.train.steps import _fold_aspects, _tile_visual, aspect_loss, extract_visual
 
@@ -46,15 +47,17 @@ def baseline_forward(model, visual: Optional[VisualFeatures], batch: Batch,
     return logits.reshape(b, a, -1)
 
 
-def make_baseline_train_step(state: TrainState) -> Callable:
+def make_baseline_train_step(state: TrainState, dp_index: Optional[int] = None) -> Callable:
     """-> step(batch, seed) = metrics {"loss", "accuracy"} as device tensors:
-    the model in training mode with dropout drawn from (seed, state.step),
-    the loss, its backward (K1's backward kernel in the text encoder), one
+    the model in training mode with dropout drawn from (seed, state.step,
+    dp_index) (`dp_index` defaults to `parallel.mesh.dp_index()`), the
+    loss, its backward (K1's backward kernel in the text encoder), one
     optimizer step.  Nothing in it waits on the device."""
+    dp_index = mesh.dp_index() if dp_index is None else dp_index
 
     def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         state.model.train()
-        rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device)
+        rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device, dp_index)
         loss, acc = aspect_loss(baseline_forward(state.model, state.visual, batch, rng),
                                 batch["labels"])
         loss.backward()

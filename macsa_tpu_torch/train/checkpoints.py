@@ -11,7 +11,11 @@ reference's checkpoint semantics (run_multimodal_fcmf.py:40-58,316-380,
   restores the randomness too), the epoch and the best score,
 * `best` and `last` checkpoints are kept side by side (:554-563),
 * one file per tag, `<dir>/<tag>.pt`, written to a temporary name and
-  renamed, so a reader never sees a half-written file.
+  renamed, so a reader never sees a half-written file,
+* under tensor parallelism (`parallel/sharding.py`) a file holds whole
+  tensors, the names and shapes of an mp 1 file: `save` gathers each
+  sharded parameter and its AdamW moments over the mp ranks' gloo group,
+  and a restore at any mp keeps the rank's part of each.
 
 `restore_params_only` also reads a reference `.pth` (a bare state dict of
 the reference's FCMF, legacy key names included).  The Phase-1 -> Phase-2
@@ -23,11 +27,12 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from macsa_tpu_torch.parallel import mesh, sharding
 from macsa_tpu_torch.train.jax_import import normalize_reference_keys
 from macsa_tpu_torch.train.state import TrainState
 
@@ -45,6 +50,39 @@ def _cpu(tree: Any) -> Any:
     return tree
 
 
+def _optimizer_shards(state: TrainState) -> Tuple[Dict[int, sharding.Shard], List]:
+    """The shards of an `optim.AdamW`'s state: by the index of its
+    `torch.optim` state dict (its parameters in group order), and by its
+    own parameter order (the accumulation buffers)."""
+    opt = state.optimizer
+    ordered = [p for group in opt.optimizer.param_groups for p in group["params"]]
+    return ({i: sharding.param_shard(p) for i, p in enumerate(ordered)
+             if sharding.param_shard(p) is not None},
+            [sharding.param_shard(p) for p in opt.params])
+
+
+def _map_shards(state: TrainState, model_sd: dict, opt_sd: Optional[dict], fn) -> None:
+    """Apply fn(tensor, shard) in place to every sharded tensor of a model
+    state dict and of an AdamW state dict (moments and accumulation)."""
+    for name, shard in sharding.shards_by_name(state.model).items():
+        model_sd[name] = fn(model_sd[name], shard)
+    if opt_sd is None:
+        return
+    by_index, by_param = _optimizer_shards(state)
+    for i, shard in by_index.items():
+        moments = opt_sd["optimizer"]["state"].get(i, {})
+        for key in ("exp_avg", "exp_avg_sq"):
+            if key in moments:
+                moments[key] = fn(moments[key], shard)
+    if opt_sd.get("acc") is not None:
+        opt_sd["acc"] = [a if shard is None else fn(a, shard)
+                         for a, shard in zip(opt_sd["acc"], by_param)]
+
+
+def _is_sharded(state: TrainState) -> bool:
+    return bool(sharding.shards_by_name(state.model))
+
+
 class CheckpointManager:
     """Tagged checkpoints (`best`, `last`, ...) under one directory."""
 
@@ -56,15 +94,22 @@ class CheckpointManager:
         return os.path.join(self.directory, f"{tag}.pt")
 
     def save(self, tag: str, state: TrainState, epoch: int, best_score: float = 0.0) -> None:
+        """Write `<tag>.pt`.  A model sharded over mp is gathered first: the
+        mp ranks of data-parallel index 0 all call `save`, rank 0 writes."""
         opt = state.optimizer
+        model_sd, opt_sd = _cpu(state.model.state_dict()), _cpu(opt.state_dict())
+        if _is_sharded(state):
+            _map_shards(state, model_sd, opt_sd, sharding.gather_whole)
+            if mesh.process_index() != 0:
+                return
         payload = {
             "format": FORMAT,
             "step": int(state.step),
             "epoch": int(epoch),
             "best_score": float(best_score),
-            "model": _cpu(state.model.state_dict()),
+            "model": model_sd,
             "visual": _cpu(state.visual.state_dict()),
-            "optimizer": _cpu(opt.state_dict()),
+            "optimizer": opt_sd,
         }
         path = self._path(tag)
         tmp = f"{path}.tmp.{os.getpid()}"
@@ -102,6 +147,8 @@ class CheckpointManager:
         got = self._load(tag)
         if got.get("format") != FORMAT:
             raise ValueError(f"{self._path(tag)} is not a checkpoint of this package")
+        if _is_sharded(state):
+            _map_shards(state, got["model"], got["optimizer"], sharding.local_part)
         state.model.load_state_dict(got["model"], strict=True)
         state.visual.load_state_dict(got["visual"], strict=True)
         state.optimizer.load_state_dict(got["optimizer"])
@@ -116,10 +163,14 @@ class CheckpointManager:
         are normalized; the visual backbone is then left as it is."""
         got = self._load(tag)
         if isinstance(got, dict) and got.get("format") == FORMAT:
+            if _is_sharded(state):
+                _map_shards(state, got["model"], None, sharding.local_part)
             state.model.load_state_dict(got["model"], strict=True)
             state.visual.load_state_dict(got["visual"], strict=True)
             return state
         sd = {k: torch.as_tensor(v) for k, v in normalize_reference_keys(got).items()}
+        if _is_sharded(state):
+            _map_shards(state, sd, None, sharding.local_part)
         state.model.load_state_dict(sd, strict=True)
         return state
 

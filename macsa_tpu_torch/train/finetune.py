@@ -20,13 +20,15 @@ What differs from the JAX driver:
   checkpoint file.
 * data parallelism is the reference's DDP over processes (`parallel/mesh.py`):
   `torchrun --nproc_per_node N -m macsa_tpu_torch.train.finetune ...`, one
-  card a rank; `--train_batch_size` is per process (the global batch is N
-  times it, as in JAX); the ranks' gradients are averaged once an update;
-  dev eval runs on lockstep stripes, gathered to every rank; only rank 0
-  writes logs, metrics, checkpoints and reports.  With dropout on, N ranks
-  draw other masks than one process (the masks hash the local row).
-* not ported yet, refused with the ROADMAP item that will lift it:
-  `--mp > 1` (tensor parallelism).
+  card a rank; `--train_batch_size` is per data-parallel rank (the global
+  batch is dp times it, as in JAX); the ranks' gradients are averaged once
+  an update; dev eval runs on lockstep stripes, gathered to every rank;
+  only rank 0 writes logs, metrics, checkpoints and reports.  Each
+  data-parallel rank draws its own dropout masks (`DropoutRng` keyed by
+  its index), so with dropout on N ranks draw other masks than one process.
+* `--mp M` is tensor parallelism (`parallel/sharding.py`, JAX's Megatron
+  rules): N processes make dp = N / M data-parallel ranks of M model
+  shards each; the checkpoints hold whole tensors.
 * `--fine_tune_cnn` trains the ResNet beside the model (convolutions and
   all four tensors of every FrozenBatchNorm, in the one AdamW); the feature
   cache is then off unless `--cache_visual_features on`, as in JAX.
@@ -54,7 +56,7 @@ from macsa_tpu_torch.data.vimacsa import MACSADataset
 from macsa_tpu_torch.models.fcmf import FCMF
 from macsa_tpu_torch.models.layers import init_weights
 from macsa_tpu_torch.models.resnet import VisualFeatures
-from macsa_tpu_torch.parallel import mesh
+from macsa_tpu_torch.parallel import mesh, sharding
 from macsa_tpu_torch.train import common
 from macsa_tpu_torch.train.checkpoints import (CheckpointManager, load_model_state_dict,
                                                resolve_iaog_checkpoint,
@@ -139,7 +141,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="ResNet stage sizes (default: ResNet-152); smaller "
                         "values for smoke tests, e.g. '1,1,1,1'")
     p.add_argument("--mp", type=int, default=1,
-                   help="tensor-parallel size (not ported yet; must be 1)")
+                   help="tensor-parallel size: the model is Megatron-sharded over "
+                        "mp ranks (parallel.sharding), dp = processes // mp")
     p.add_argument("--cache_visual_features", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="cache the frozen-CNN visual features in device "
@@ -160,14 +163,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    """Flags of the JAX driver whose path is not ported yet."""
-    if args.mp != 1:
-        raise NotImplementedError(
-            f"--mp {args.mp}: tensor parallelism is not ported (ROADMAP queue 1, tensor "
-            "parallelism)")
-
-
 def main(argv: Optional[list] = None, *,
          config_hook: Optional[Callable] = None,
          model_hook: Optional[Callable] = None) -> dict:
@@ -177,10 +172,11 @@ def main(argv: Optional[list] = None, *,
     from the flags, `model_hook(model, visual)` runs after the weight
     import (to load carried-over parameters)."""
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
     device = mesh.maybe_initialize_distributed(resolve_device(args.device))
-    n_hosts, host_id = mesh.process_count(), mesh.process_index()
-    is_main = host_id == 0
+    mesh.init_model_parallel(args.mp)
+    # the loaders' shards and stripes are the data-parallel ranks'
+    n_hosts, host_id = mesh.dp_size(), mesh.dp_index()
+    is_main = mesh.process_index() == 0
     logger = setup_logging(args.output_dir if is_main else None, is_main=is_main)
     writer = MetricWriter(args.output_dir) if is_main else NullWriter()
     np.random.seed(args.seed)
@@ -236,6 +232,7 @@ def main(argv: Optional[list] = None, *,
         model_hook(model, visual)
     mesh.replicate(model)  # every rank starts from rank 0's weights
     mesh.replicate(visual)
+    sharding.shard_model_(model)  # --mp > 1: each rank keeps its slices
 
     # --- optimizer (dual LR, run_multimodal_fcmf.py:247-289) -------------
     train_ds = make_dataset("train") if args.do_train else None
@@ -264,7 +261,7 @@ def main(argv: Optional[list] = None, *,
         logger.info(f"resumed from epoch {start_epoch} (step {state.step}), "
                     f"best F1 {best_f1:.4f}")
 
-    train_step = make_finetune_train_step(state)
+    train_step = make_finetune_train_step(state, host_id)
     eval_step = make_finetune_eval_step(model, visual)
 
     # --- frozen-CNN visual feature cache (device memory) -----------------
@@ -381,12 +378,13 @@ def main(argv: Optional[list] = None, *,
                 if f1 > best_f1:
                     best_f1 = f1
                     logger.info(f"new best F1 {best_f1:.4f}; saving best")
-                    if is_main:
+                    if host_id == 0:  # rank 0 writes; its mp peers send their shards
                         ckpt.save("best", state, epoch + 1, best_f1)
+                    if is_main:
                         ckpt.copy("best", "last")  # identical payload
                     mesh.barrier()
                     continue
-            if is_main:
+            if host_id == 0:
                 ckpt.save("last", state, epoch + 1, best_f1)
             mesh.barrier()
         ckpt.finalize()

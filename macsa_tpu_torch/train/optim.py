@@ -13,8 +13,12 @@ The reference recipe (run_multimodal_fcmf.py:247-314):
 * gradient accumulation with `optax.MultiSteps` semantics: the running
   mean of k gradients, then one clipped update,
 * under data parallelism (`parallel/mesh.py`) the accumulated gradient is
-  averaged over the ranks before the clip, so every rank takes the update
-  of the global batch,
+  averaged over the data-parallel ranks before the clip, so every rank
+  takes the update of the global batch (AdamW and BertAdam alike),
+* under tensor parallelism (`parallel/sharding.py`) a sharded parameter,
+  its gradient and its moments are the rank's slice; the clipping norm is
+  the whole model's: the sharded gradients' squares summed over mp, the
+  replicated ones counted once, as JAX's norm of its global arrays,
 * `BertAdam` (fcmf_framework/optimization.py): Adam without bias
   correction, decoupled weight decay, inline warmup schedules.
 
@@ -36,6 +40,7 @@ from torch import nn
 
 from macsa_tpu_torch.models.layers import LayerNormTF
 from macsa_tpu_torch.models.resnet import FrozenBatchNorm
+from macsa_tpu_torch.parallel import sharding
 from macsa_tpu_torch.parallel.mesh import all_reduce_gradients
 
 Schedule = Callable[[int], float]
@@ -85,10 +90,22 @@ def _grads(params: Sequence[torch.Tensor]) -> list:
     return [p.grad for p in params]
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         params: Optional[Sequence[torch.Tensor]] = None) -> None:
     """Scale `grads` in place by min(1, max_norm / ||grads||), on the
-    device: nothing waits for the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    device: nothing waits for the norm.  `params` (each gradient's
+    parameter) tell the shards of tensor parallelism: their squares are
+    summed over mp, so every mp rank takes the whole model's norm."""
+    norms = torch._foreach_norm(grads)
+    shards = [sharding.param_shard(p) for p in params or ()]
+    split = next((s for s in shards if s is not None), None)
+    if split is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        squares = torch.stack(norms).square()
+        sharded = torch.tensor([s is not None for s in shards], device=squares.device)
+        total = sharding.all_reduce_(torch.where(sharded, squares, 0.0).sum().reshape(1), split)
+        norm = torch.sqrt(total + torch.where(sharded, 0.0, squares).sum())[0]
     torch._foreach_mul_(grads, torch.clamp(max_norm / norm, max=1.0))
 
 
@@ -170,7 +187,7 @@ class AdamW:
         # micro-step gradients are global already; MultiSteps averages them)
         all_reduce_gradients(grads)
         if self.max_grad_norm is not None:
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            clip_by_global_norm_(grads, self.max_grad_norm, self.params)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedules[group["part"]](self.updates)
         self.optimizer.step()
@@ -222,7 +239,8 @@ SCHEDULES = {
 class BertAdam:
     """BERT-style Adam without bias correction, decoupled weight decay on
     every parameter, and inline warmup: the JAX `bert_adam`.  Clipping is
-    global, as there (the reference clips per group)."""
+    global, as there (the reference clips per group), after the gradients'
+    mean over the data-parallel ranks, as `AdamW.step` takes it."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float,
                  warmup: float = -1, t_total: int = -1, schedule: str = "warmup_linear",
@@ -240,8 +258,9 @@ class BertAdam:
     @torch.no_grad()
     def step(self) -> None:
         grads = _grads(self.params)
+        all_reduce_gradients(grads)
         if self.max_grad_norm is not None and self.max_grad_norm > 0:
-            clip_by_global_norm_(grads, self.max_grad_norm)
+            clip_by_global_norm_(grads, self.max_grad_norm, self.params)
         lr_t = self.lr
         if self.t_total != -1:
             lr_t = self.lr * self.schedule(self.count / self.t_total, self.warmup)

@@ -23,10 +23,12 @@ What differs from the JAX driver:
   `--log_every` steps and at the epoch's end.
 * data parallelism is the reference's DDP over processes (`parallel/mesh.py`,
   `torchrun --nproc_per_node N -m macsa_tpu_torch.train.pretrain ...`):
-  `--train_batch_size` is per process, the loss is the mean over the
-  global batch's valid tokens (`steps.pretrain_loss`), only rank 0 logs,
-  writes metrics and checkpoints and decodes the debug samples.
-  `--mp > 1` is refused, with the ROADMAP item that will lift it.
+  `--train_batch_size` is per data-parallel rank, the loss is the mean
+  over the global batch's valid tokens (`steps.pretrain_loss`), only rank
+  0 logs, writes metrics and checkpoints and shows the debug samples.
+* `--mp M` is tensor parallelism (`parallel/sharding.py`): dp = N / M;
+  the tied token table is split by rows over the M ranks and the loss is
+  vocab-parallel; the mp peers of rank 0 decode the debug samples with it.
 * `--fine_tune_cnn` is accepted and leaves the ResNet frozen, as the JAX
   driver's Phase-1 step does (it only turns the feature cache's `auto` off).
 
@@ -50,7 +52,7 @@ from macsa_tpu_torch.data.tokenizer import load_tokenizer
 from macsa_tpu_torch.models.layers import init_weights
 from macsa_tpu_torch.models.resnet import VisualFeatures
 from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq
-from macsa_tpu_torch.parallel import mesh
+from macsa_tpu_torch.parallel import mesh, sharding
 from macsa_tpu_torch.train import common
 from macsa_tpu_torch.train.checkpoints import CheckpointManager
 from macsa_tpu_torch.train.common import resolve_device, resolve_fused_attention, to_device
@@ -136,7 +138,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "alpha >= 1 the flag changes nothing)")
     p.add_argument("--resnet_stages", type=str, default="3,8,36,3")
     p.add_argument("--mp", type=int, default=1,
-                   help="tensor-parallel size (not ported yet; must be 1)")
+                   help="tensor-parallel size: the model is Megatron-sharded over "
+                        "mp ranks (parallel.sharding), dp = processes // mp")
     p.add_argument("--cache_visual_features", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="cache frozen-CNN visual features in device memory, "
@@ -182,14 +185,6 @@ def preprocess_iaog_records(records, normalizer=None):
     return records
 
 
-def refuse_unported(args) -> None:
-    """Flags of the JAX driver whose path is not ported yet."""
-    if args.mp != 1:
-        raise NotImplementedError(
-            f"--mp {args.mp}: tensor parallelism is not ported (ROADMAP queue 1, tensor "
-            "parallelism); data parallelism is: launch N processes with torchrun")
-
-
 def main(argv: Optional[list] = None, *,
          config_hook: Optional[Callable] = None,
          model_hook: Optional[Callable] = None) -> dict:
@@ -199,10 +194,11 @@ def main(argv: Optional[list] = None, *,
     configs built from the flags, `model_hook(model, visual)` runs after the
     weight import (to load carried-over parameters)."""
     args = build_argparser().parse_args(argv)
-    refuse_unported(args)
     device = mesh.maybe_initialize_distributed(resolve_device(args.device))
-    n_hosts, host_id = mesh.process_count(), mesh.process_index()
-    is_main = host_id == 0
+    mesh.init_model_parallel(args.mp)
+    # the loader's shards are the data-parallel ranks'
+    n_hosts, host_id = mesh.dp_size(), mesh.dp_index()
+    is_main = mesh.process_index() == 0
     data_dir = args.data_dir or args.pretrained_data_dir
     logger = setup_logging(args.output_dir if is_main else None, is_main=is_main)
     writer = MetricWriter(args.output_dir) if is_main else NullWriter()
@@ -264,6 +260,7 @@ def main(argv: Optional[list] = None, *,
         model_hook(model, visual)
     mesh.replicate(model)  # every rank starts from rank 0's weights
     mesh.replicate(visual)
+    sharding.shard_model_(model)  # --mp > 1: each rank keeps its slices
 
     # --- optimizer: single-rate AdamW (run_pretraining_fcmf.py:254-270) ---
     train_ds = make_dataset("train") if args.do_train else None
@@ -288,7 +285,8 @@ def main(argv: Optional[list] = None, *,
         logger.info(f"resumed from epoch {start_epoch} (step {state.step}), "
                     f"best loss {best_loss:.4f}")
 
-    train_step = make_pretrain_train_step(state, vocab_chunk=args.vocab_chunk)
+    train_step = make_pretrain_train_step(state, vocab_chunk=args.vocab_chunk,
+                                          dp_index=host_id)
 
     # --- frozen-CNN visual feature cache, keyed by ORIGINAL review index
     # (IAOG expands each review into one sample per aspect — all of them
@@ -370,7 +368,8 @@ def main(argv: Optional[list] = None, *,
                                 f"tok-acc {acc:.3f} {rate:.2f} samples/s")
                     writer.write(int(state.step), loss=loss, token_accuracy=acc,
                                  samples_per_s=rate, epoch=epoch)
-                if is_main and args.debug_decode_every and i % args.debug_decode_every == 0:
+                # rank 0 shows them; under --mp its peers decode beside it
+                if host_id == 0 and args.debug_decode_every and i % args.debug_decode_every == 0:
                     debug_decode(sent, texts)
             # the epoch's one wait for the device: its steps' losses
             mean_loss = (float(mesh.all_mean(torch.stack(step_losses).double().mean()))
@@ -379,13 +378,15 @@ def main(argv: Optional[list] = None, *,
             i = meter.steps
             logger.info(f"epoch {epoch} mean loss {mean_loss:.4f} ({i} steps)")
             meter.write(writer, int(state.step), epoch_mean_loss=mean_loss)
+            # rank 0 writes; its mp peers send their shards
             if i > 0 and mean_loss < best_loss:
                 best_loss = mean_loss
-                if is_main:
+                if host_id == 0:
                     ckpt.save("best", state, epoch + 1, -best_loss)
+                if is_main:
                     ckpt.copy("best", "last")  # identical payload
-            elif is_main and ((epoch + 1 - start_epoch) % max(args.checkpoint_every, 1) == 0
-                              or epoch == int(args.num_train_epochs) - 1):
+            elif host_id == 0 and ((epoch + 1 - start_epoch) % max(args.checkpoint_every, 1) == 0
+                                   or epoch == int(args.num_train_epochs) - 1):
                 ckpt.save("last", state, epoch + 1, -best_loss)
             mesh.barrier()
         ckpt.finalize()

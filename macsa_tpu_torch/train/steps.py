@@ -20,9 +20,9 @@ import torch.nn.functional as F
 from macsa_tpu_torch.models.fcmf import FCMF
 from macsa_tpu_torch.models.layers import DropoutRng
 from macsa_tpu_torch.models.resnet import VisualFeatures
-from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq, chunked_seq2seq_loss, seq2seq_loss
+from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq, seq2seq_loss, tied_head_loss
 from macsa_tpu_torch.ops.image_prep import device_normalize
-from macsa_tpu_torch.parallel.mesh import all_sum, process_count
+from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -94,18 +94,20 @@ def finetune_loss(model: FCMF, visual: VisualFeatures, batch: Batch,
                        batch["labels"])
 
 
-def make_finetune_train_step(state: TrainState) -> Callable:
+def make_finetune_train_step(state: TrainState, dp_index: Optional[int] = None) -> Callable:
     """-> step(batch, seed) = metrics {"loss", "accuracy"} as device tensors.
 
     One step: the model in training mode with dropout drawn from generators
-    derived from (seed, state.step), the loss, its backward (K1's backward
-    kernel in the text encoder; through the ResNet too when
-    `state.fine_tune_cnn`), and one optimizer step.  Nothing in it waits
-    on the device."""
+    derived from (seed, state.step, dp_index) (`DropoutRng.for_step`;
+    `dp_index` defaults to `parallel.mesh.dp_index()`), the loss, its
+    backward (K1's backward kernel in the text encoder; through the ResNet
+    too when `state.fine_tune_cnn`), and one optimizer step.  Nothing in it
+    waits on the device."""
+    dp_index = mesh.dp_index() if dp_index is None else dp_index
 
     def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         state.model.train()
-        rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device)
+        rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device, dp_index)
         loss, acc = finetune_loss(state.model, state.visual, batch, rng, state.fine_tune_cnn)
         loss.backward()
         state.apply_gradients()
@@ -151,10 +153,12 @@ def pretrain_loss(model: FCMFSeq2Seq, visual: VisualFeatures, batch: Batch,
     """(loss, token accuracy) of one IAOG batch: CE with ignore_index -100
     over the decoder's logits (run_pretraining_fcmf.py:322-324).  Under
     data parallelism the loss is this rank's share of the global batch's
-    mean (its mean over the ranks is the global mean) and the accuracy is
-    the global batch's.
+    mean (its mean over the dp ranks is the global mean) and the accuracy
+    is the global batch's.
     `vocab_chunk` > 0 takes the loss and the argmax from
-    `chunked_seq2seq_loss`: the [B, T, V] f32 logits are never held."""
+    `chunked_seq2seq_loss`: the [B, T, V] f32 logits are never held.  A
+    vocab-parallel head (tensor parallelism) always takes that path, over
+    its rows (`seq2seq.tied_head_loss`)."""
     grid, roi = visual_features(model, visual, batch)
     args = (batch["enc_input_ids"], batch["dec_input_ids"], grid, roi, batch["roi_coors"],
             batch.get("token_type_ids"), batch["attention_mask"], batch["added_mask"])
@@ -163,21 +167,21 @@ def pretrain_loss(model: FCMFSeq2Seq, visual: VisualFeatures, batch: Batch,
     # rank's sum over the global count, times the world size, so that the
     # optimizer's mean over the ranks is the global mean's gradient
     valid = labels != -100
-    count = all_sum(valid.sum()).clamp(min=1)
-    denominator = count / process_count()
-    if vocab_chunk > 0:
+    count = mesh.all_sum(valid.sum()).clamp(min=1)
+    denominator = count / mesh.dp_size()
+    if vocab_chunk > 0 or model.decoder.dense.tp is not None:
         hidden = model(*args, rng=rng, return_hidden=True)
-        loss, pred = chunked_seq2seq_loss(hidden, model.shared_embedding,
-                                          model.decoder.dense.bias, labels,
-                                          chunk_size=vocab_chunk, denominator=denominator)
+        loss, pred = tied_head_loss(model.decoder.dense, hidden, labels, vocab_chunk,
+                                    denominator)
     else:
         logits = model(*args, rng=rng)
         loss, pred = seq2seq_loss(logits, labels, denominator=denominator), logits.argmax(-1)
-    acc = all_sum(((pred == labels) & valid).sum()) / count
+    acc = mesh.all_sum(((pred == labels) & valid).sum()) / count
     return loss, acc
 
 
-def make_pretrain_train_step(state: TrainState, vocab_chunk: int = 0) -> Callable:
+def make_pretrain_train_step(state: TrainState, vocab_chunk: int = 0,
+                             dp_index: Optional[int] = None) -> Callable:
     """Phase-1 IAOG seq2seq step (run_pretraining_fcmf.py:290-337)
     -> step(batch, seed) = metrics {"loss", "token_accuracy"} as device
     tensors.
@@ -186,12 +190,13 @@ def make_pretrain_train_step(state: TrainState, vocab_chunk: int = 0) -> Callabl
     `make_pretrain_train_step` always stops its gradient): it runs under
     `no_grad`, or not at all when the batch carries cached `grid`/`roi`
     features.  Dropout is drawn
-    from generators derived from (seed, state.step).  Nothing in the step
-    waits on the device."""
+    from generators derived from (seed, state.step, dp_index), as in
+    `make_finetune_train_step`.  Nothing in the step waits on the device."""
+    dp_index = mesh.dp_index() if dp_index is None else dp_index
 
     def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
         state.model.train()
-        rng = DropoutRng.for_step(seed, state.step, batch["enc_input_ids"].device)
+        rng = DropoutRng.for_step(seed, state.step, batch["enc_input_ids"].device, dp_index)
         loss, acc = pretrain_loss(state.model, state.visual, batch, rng, vocab_chunk)
         loss.backward()
         state.apply_gradients()

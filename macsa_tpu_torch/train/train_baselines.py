@@ -114,7 +114,7 @@ def main(argv: Optional[list] = None, *,
     import (`visual` is None for efcap)."""
     args = build_argparser().parse_args(argv)
     device = mesh.maybe_initialize_distributed(resolve_device(args.device))
-    n_hosts, host_id = mesh.process_count(), mesh.process_index()
+    n_hosts, host_id = mesh.dp_size(), mesh.dp_index()
     is_main = host_id == 0
     logger = setup_logging(args.output_dir if is_main else None, is_main=is_main)
     writer = MetricWriter(args.output_dir) if is_main else NullWriter()
@@ -196,7 +196,7 @@ def main(argv: Optional[list] = None, *,
         logger.info(f"resumed from epoch {start_epoch} (step {state.step}), "
                     f"best F1 {best_f1:.4f}")
 
-    train_step = make_baseline_train_step(state)
+    train_step = make_baseline_train_step(state, host_id)
     eval_step = make_baseline_eval_step(model, visual)
 
     def run_eval(dataset):

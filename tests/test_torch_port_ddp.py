@@ -23,9 +23,12 @@ One two-rank job (subprocesses on a free port, as
 * `pretrain.main` the same way (3 epochs), over 3 reviews whose 6 samples
   put review 1 on both ranks, with the feature cache on (the later epochs
   read it) and on disk, and `train_baselines.main` with TomBERT.
-Dropout is 0 throughout: the masks hash the local row index (K1's hash of
-(seed, b, h, i, j), `DropoutRng`), so with dropout on two ranks do not
-reproduce one process bit for bit.
+Dropout is 0 throughout: each data-parallel rank draws its own masks
+(`DropoutRng` keyed by its index, K1's seed offset by it;
+`tests/test_torch_port_rank_streams.py`), and one process draws one set
+over the global batch, so with dropout on two ranks do not reproduce one
+process bit for bit, only in distribution (as JAX's global mask and the
+port's per-rank ones do).
 """
 
 import dataclasses

@@ -642,11 +642,12 @@ def test_flag_surface_covers_the_jax_drivers_and_the_card_is_the_default(data, t
 
 
 @pytest.mark.parametrize("flags,reason", [
-    (["--mp", "2"], "tensor parallelism is not ported")])
+    (["--mp", "2"], "--mp 2 does not divide the 1 processes of the run")])
 def test_driver_refuses_what_is_not_ported_with_its_reason(data, tmp_path, flags, reason):
-    with pytest.raises(NotImplementedError, match=reason) as err:
+    # tensor parallelism is ported (tests/test_torch_port_tp.py); what is
+    # refused is an mp that does not divide the processes
+    with pytest.raises(ValueError, match=reason):
         pretrain.main(_argv(data, tmp_path, "--do_train", *flags))
-    assert "ROADMAP" in str(err.value)
     assert not os.listdir(tmp_path)  # refused before anything is written
 
 

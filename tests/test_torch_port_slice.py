@@ -47,7 +47,8 @@ SLICE_MODULES = ("config", "ops.cuda_lib", "ops.image_prep", "ops.fused_attentio
                  "tools.image_categories", "tools.roi_categories", "inference.pipeline",
                  "inference.cli", "models.baselines", "models.catr", "data.baselines",
                  "train.baseline_steps", "train.train_baselines", "tools.generate_captions",
-                 "ops", "inference.export", "parallel", "parallel.mesh")
+                 "ops", "inference.export", "parallel", "parallel.mesh",
+                 "parallel.sharding")
 
 
 MODEL_KW = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
