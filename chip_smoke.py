@@ -12,7 +12,9 @@ holds each kernel against its plain PyTorch version at the shapes of the
 paths below (K2 at both phases' batches; K1's forward and backward with
 dropout on and off, bf16 on its tensor-core variant and f32 on its
 CUDA-core variant, also at Phase 1's batches and its eval's, and at
-EF-CapTrRoBERTa's 256 rows, where bf16's backward runs on the CUDA cores; K3,
+EF-CapTrRoBERTa's 256 rows, where bf16's forward walks ring passes and its
+backward streams tiles in two launches, and the two-launch backward is read
+once beside the one-launch kernel at 170 rows; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
 whole identity bottleneck, at all four stages; in bf16 both must run their
@@ -149,6 +151,27 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 50, warmup: int = 5, spin_cycles: int = 200_000_000) -> tuple:
+    """Mean device time of `fn` with the host out of the way and without a
+    profiler: a spin kernel (~0.1 s) holds the stream while the host queues
+    `iters` calls behind it, so the events around the calls see the card
+    run them back to back.  For calls whose host time rivals their device
+    time (autograd's backward), where back-to-back calls time the host.
+    -> (ms, whether the host had queued every call before the spin ended)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    ahead = not start.query()  # the spin still held the stream when the host was done
+    end.synchronize()
+    return start.elapsed_time(end) / iters, ahead
 
 
 def graph_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
@@ -482,6 +505,39 @@ def phase_k1_bwd(dev, cuda_lib, fa):
                       + ("none" if library_ms is None else f"{library_ms:.4f} (SDPA backward)")
                       + f" {bound_text(bd)}" + timing)
     return report
+
+
+def phase_k1_bwd_streamed(dev, cuda_lib, fa) -> None:
+    """One informational reading: the two-launch backward that bf16 runs
+    past 192 rows, at the train step's [48, 170, 768] (rate 0, mask
+    -10000) beside the one-launch kernel that runs there, timed in turns
+    (one, two, two, one) over 100 back-to-back calls, its gradients held
+    to the plain version at phase k1_bwd's bf16 tolerance.  Printed only;
+    no path takes it at this length."""
+    g = torch.Generator(dev).manual_seed(5)
+    b, l, h, d = BATCH * NUM_ASPECTS, 170, 12, 64
+    lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
+    lens[:8] = l
+    mask = torch.zeros(b, l, device=dev).masked_fill(
+        torch.arange(l, device=dev)[None, :] >= lens[:, None], -10000.0)
+    q, k, v, gout = (torch.randn(b, l, h * d, device=dev, generator=g).to(torch.bfloat16)
+                     for _ in range(4))
+    lse = fa._launch_fwd(q, k, v, mask, h, 0.0, 0, with_lse=True)[1]
+    got = fa._launch_bwd_streamed(q, k, v, mask, lse, gout, h, 0.0, 0)
+    wants = fa.attention_backward_reference(q, k, v, mask, gout, h)
+    torch.cuda.synchronize()
+    rel = {n: ((x.float() - w.float()).abs().max() / w.float().abs().max()).item()
+           for n, x, w in zip(("dq", "dk", "dv"), got, wants)}
+    if not max(rel.values()) <= 3e-2:
+        raise AssertionError(f"K1 two-launch backward at [{b},{l},{h * d}]: {rel} of max|ref|")
+    one = functools.partial(fa._launch_bwd, q, k, v, mask, lse, gout, h, 0.0, 0)
+    two = functools.partial(fa._launch_bwd_streamed, q, k, v, mask, lse, gout, h, 0.0, 0)
+    readings = [cuda_ms(fn, iters=100, warmup=10) for fn in (one, two, two, one)]
+    print(f"phase k1_bwd bf16 two-launch backward at [{b},{l},{h * d}] h={h} rate 0 mask "
+          f"-10000 (informational, not routed): rel_err "
+          + " ".join(f"{n}={e:.3g}" for n, e in rel.items())
+          + f" (tol 3e-2 of max|ref|); ms in turns one-launch {readings[0]:.4f}, two-launch "
+          f"{readings[1]:.4f} {readings[2]:.4f}, one-launch {readings[3]:.4f}")
 
 
 def phase_k1_bwd_device(k1_bwd) -> None:
@@ -2156,10 +2212,9 @@ def phase_serve(card, cuda_lib, cli, fcmf, steps, data, ft_out, taggers, work):
 def phase_k1_baseline_shapes(dev, cuda_lib, fa) -> dict:
     """K1's forward and backward against their plain versions at the
     baselines' shapes: EF-CapTrRoBERTa's [48, 256, 768] (`--max_cap_length
-    256`: bf16's forward on the tensor cores, its backward, past 192 rows,
-    on the CUDA cores) (`k1_at_shape`)."""
-    return k1_at_shape(dev, cuda_lib, fa, 256, 12, "EF-CapTr shape",
-                       {torch.float32: "simt", torch.bfloat16: "simt"}, 29, 11)
+    256`: bf16 on the tensor cores both ways, past 192 rows the forward's
+    ring passes and the backward's two streaming launches) (`k1_at_shape`)."""
+    return k1_at_shape(dev, cuda_lib, fa, 256, 12, "EF-CapTr shape", 29, 11)
 
 
 def phase_k1_tp_shapes(dev, cuda_lib, fa) -> dict:
@@ -2167,15 +2222,14 @@ def phase_k1_tp_shapes(dev, cuda_lib, fa) -> dict:
     rank's share of the text encoder under tensor parallelism at mp 2 (phase
     tp): [48, 170, 384], 6 heads of 64 (bf16 on the tensor cores both ways,
     f32 on the CUDA cores) (`k1_at_shape`)."""
-    return k1_at_shape(dev, cuda_lib, fa, 170, 6, "mp 2 rank's shape",
-                       {torch.float32: "simt", torch.bfloat16: "wgmma"}, 31, 13)
+    return k1_at_shape(dev, cuda_lib, fa, 170, 6, "mp 2 rank's shape", 31, 13)
 
 
-def k1_at_shape(dev, cuda_lib, fa, l: int, h: int, label: str, want_bwd: dict,
-                data_seed: int, seed: int) -> dict:
+def k1_at_shape(dev, cuda_lib, fa, l: int, h: int, label: str, data_seed: int,
+                seed: int) -> dict:
     """K1's forward and backward against their plain versions at [48, l,
     h * 64], f32 and bf16, rates 0 and 0.1, with the tolerances of phases k1
-    and k1_bwd, the backward on the `want_bwd` variant of each dtype; each
+    and k1_bwd, both ways on the `K1_VARIANT` of each dtype; each
     timed beside its bound, its plain version and SDPA (the forward) or
     SDPA's backward through autograd (rate 0).
     -> {"out", "grad": worst absolute errors, (dtype, rate): times}."""
@@ -2192,7 +2246,7 @@ def k1_at_shape(dev, cuda_lib, fa, l: int, h: int, label: str, want_bwd: dict,
     for dtype in (torch.float32, torch.bfloat16):
         qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, gout))
         fwd_v, bwd_v = fa.attention_variant(dtype, d, l), fa.attention_variant(dtype, d, l, True)
-        if (fwd_v, bwd_v) != (K1_VARIANT[dtype], want_bwd[dtype]):
+        if (fwd_v, bwd_v) != (K1_VARIANT[dtype], K1_VARIANT[dtype]):
             raise AssertionError(f"K1 [{b},{l},{h * d}] {dtype}: variants {fwd_v}, {bwd_v}")
         for rate in (0.0, 0.1):
             leaves = [x.clone().requires_grad_(True) for x in (qc, kc, vc)]
@@ -2237,10 +2291,20 @@ def k1_at_shape(dev, cuda_lib, fa, l: int, h: int, label: str, want_bwd: dict,
                 q4, k4, v4, m4 = sdpa_inputs(*leaves, mask, h)
                 lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=m4)
                 g4 = sdpa_inputs(gc, gc, gc, mask, h)[0]
-                times["bwd_library_ms"] = cuda_ms(functools.partial(
-                    torch.autograd.grad, lib, leaves, g4, retain_graph=True), iters=50, warmup=5)
+                lib_bwd = functools.partial(torch.autograd.grad, lib, leaves, g4,
+                                            retain_graph=True)
+                times["bwd_library_ms"] = cuda_ms(lib_bwd, iters=50, warmup=5)
+                # both backwards again with the host out of the way: through
+                # autograd SDPA's calls time the host
+                times["bwd_queued"] = queued_ms(bwd)
+                times["bwd_library_queued"] = queued_ms(lib_bwd)
             report[(dtype, rate)] = times
             lib_text = lambda key: ("none" if times[key] is None else f"{times[key]:.4f}")
+            queued = ("" if rate != 0.0 else
+                      f"; queued behind a spin kernel (host out of the way; host ahead: "
+                      f"{times['bwd_queued'][1]}, {times['bwd_library_queued'][1]}): bwd "
+                      f"{times['bwd_queued'][0]:.4f}, SDPA backward "
+                      f"{times['bwd_library_queued'][0]:.4f}")
             print(f"phase k1 {str(dtype)[6:]} {label} [{b},{l},{h * d}] h={h} mask "
                   f"finfo.min rate {rate}: errors "
                   + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
@@ -2250,7 +2314,7 @@ def k1_at_shape(dev, cuda_lib, fa, l: int, h: int, label: str, want_bwd: dict,
                   f" (SDPA) {bound_text(times['fwd_bound'])}; bwd ({bwd_v}) "
                   f"kernel_ms={times['bwd_ms']:.4f} plain_ms={times['bwd_plain_ms']:.4f} "
                   f"library_ms={lib_text('bwd_library_ms')} (SDPA backward through autograd) "
-                  f"{bound_text(times['bwd_bound'])}")
+                  f"{bound_text(times['bwd_bound'])}" + queued)
             del leaves, out, grads, wants, lse
     cuda_lib.reset_launch_counts()
     return report
@@ -2314,7 +2378,7 @@ def phase_baselines(dev, card, cuda_lib, data, captions, work) -> dict:
     at batch 8 (dropout 0.1, the driver's AdamW 2e-5, wd 0.01, clip 1.0):
     wall, host issue and CUDA-event time, peak memory, then one step under
     `torch.profiler` (the card's activity only), K1 12 and K1b 12 launches
-    asserted a step (EF-CapTr's K1b on the CUDA cores), no K2; (4)
+    asserted a step (EF-CapTr's K1b in two launches a call), no K2; (4)
     `train_baselines.main` for one epoch with dev and test on the synthetic
     files (`efcap` with the captions of phase captions).  -> launches."""
     from macsa_tpu_torch.train import baseline_steps, optim, state as train_state
@@ -2385,9 +2449,8 @@ def phase_baselines(dev, card, cuda_lib, data, captions, work) -> dict:
                               warmup=0, host_too=False)
         got = dict(cuda_lib.launch_counts)
         n = BASELINE_STEPS + 2  # the untimed, the timed and the profiled steps
-        bwd_v = "simt" if name == "efcap" else "wgmma"
         want = {"fused_self_attention": 12 * n, "fused_self_attention.wgmma": 12 * n,
-                "fused_self_attention_bwd": 12 * n, f"fused_self_attention_bwd.{bwd_v}": 12 * n}
+                "fused_self_attention_bwd": 12 * n, "fused_self_attention_bwd.wgmma": 12 * n}
         losses = [x.item() for x in losses]
         if got != want or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"baseline {name} bf16 steps: launches {got} (want {want}; "
@@ -2403,8 +2466,8 @@ def phase_baselines(dev, card, cuda_lib, data, captions, work) -> dict:
               f"{event_ms:.2f} over {BASELINE_STEPS} steps after one untimed; peak "
               f"{peak / 2**30:.2f} GiB; one step under torch.profiler: {device:.2f} ms of device "
               f"time in {sum(r[1] for r in rows)} kernels, K1 forward {sum(u for u, _ in k1) / 1e3:.3f}"
-              f" ms, K1 backward ({bwd_v}) {sum(u for u, _ in k1b) / 1e3:.3f} ms in "
-              f"{sum(c for _, c in k1b)} kernels ({sum(u for u, _ in k1b) / 12e3:.3f} ms a launch); "
+              f" ms, K1 backward (wgmma) {sum(u for u, _ in k1b) / 1e3:.3f} ms in "
+              f"{sum(c for _, c in k1b)} kernels ({sum(u for u, _ in k1b) / 12e3:.3f} ms a call); "
               f"largest: {rows_text}; launches {got}; losses "
               + " ".join(f"{x:.4f}" for x in losses) + f"; on {card}")
         for key, count in got.items():
@@ -2428,7 +2491,7 @@ def phase_baselines(dev, card, cuda_lib, data, captions, work) -> dict:
         (epoch,) = result["epochs"]
         k = SERVE_RECORDS // BATCH
         want = {"fused_self_attention": 12 * k, "fused_self_attention.wgmma": 12 * k,
-                "fused_self_attention_bwd": 12 * k, f"fused_self_attention_bwd.{bwd_v}": 12 * k}
+                "fused_self_attention_bwd": 12 * k, "fused_self_attention_bwd.wgmma": 12 * k}
         files = ("last.pt", "train.log", "metrics.jsonl", f"test_results_{name}.txt",
                  "test_predictions_formatted.txt")
         missing = [f for f in files if not os.path.isfile(os.path.join(out, f))]
@@ -3147,6 +3210,7 @@ def main() -> int:
     k2_phase1 = run(phase_k2_phase1_shapes, dev, image_prep)
     k1 = run(phase_k1, dev, cuda_lib, fa)
     k1_bwd = run(phase_k1_bwd, dev, cuda_lib, fa)
+    run(phase_k1_bwd_streamed, dev, cuda_lib, fa)
     k1_phase1 = run(phase_k1_phase1_shapes, dev, cuda_lib, fa)
     k1_baselines = run(phase_k1_baseline_shapes, dev, cuda_lib, fa)
     k1_tp = run(phase_k1_tp_shapes, dev, cuda_lib, fa)
@@ -3214,13 +3278,18 @@ def main() -> int:
     def at_shape(which: str, report: dict, rows: int, width: int) -> dict:
         """K1's (`fwd`) or K1b's (`bwd`) bf16 times at [48, rows, width],
         rate 0 (EF-CapTr's rows; an mp 2 rank's heads): the variant it ran,
-        its time, plain, bound, SDPA's."""
+        its time, plain, bound, SDPA's.  The backward's `ms` and `library_ms`
+        are each side's smaller reading, back to back or queued behind a
+        spin kernel (`queued_ms`)."""
         t = report[(bf16, 0.0)]
+        ms, library_ms = t[f"{which}_ms"], t[f"{which}_library_ms"]
+        if which == "bwd":
+            ms = min(ms, t["bwd_queued"][0])
+            library_ms = min(library_ms, t["bwd_library_queued"][0])
         return {"shape": [BATCH * NUM_ASPECTS, rows, width], "variant": t[f"{which}_variant"],
-                "ms": t[f"{which}_ms"], "plain_ms": t[f"{which}_plain_ms"],
+                "ms": ms, "plain_ms": t[f"{which}_plain_ms"],
                 "bound_ms": t[f"{which}_bound"]["bound_ms"],
-                "bound_by": t[f"{which}_bound"]["bound_by"],
-                "library_ms": t[f"{which}_library_ms"]}
+                "bound_by": t[f"{which}_bound"]["bound_by"], "library_ms": library_ms}
     k4_conv1 = next(r for (name, dt), r in k4.items() if name.startswith("conv1") and dt == bf16)
     kernels = [
         entry("fused_self_attention", "fused_attention_wgmma.cu",

@@ -8,14 +8,19 @@ time the kernel loses without it: each variant below is
 `fused_attention_wgmma.cu` with a few lines replaced (the replacement must
 find its text, so an edit of the source that moves a piece fails here, not
 silently), compiled by `nvcc` into its own library and called through
-`ctypes` on the train step's shape, `[48, 170, 768]` bf16 with 12 heads,
-100 back-to-back launches between CUDA events, all in one process.  The
+`ctypes` on the train step's shape, `[48, 170, 768]` bf16 with 12 heads
+(the forward holding its keys, the one-launch backward), and on
+EF-CapTrRoBERTa's `[48, 256, 768]` (the ring forward, the two streaming
+launches of the backward), 100 back-to-back launches between CUDA events,
+all in one process.  A piece that one shape's kernels do not have leaves
+that shape's times as they are.  The
 variants compute wrong results; only their times mean something.  Stores
 are taken out behind a condition the compiler cannot decide (`L < 0`), so
 the work that feeds them stays.  Needs an H100 and `nvcc`.
 """
 
 import ctypes
+import itertools
 import subprocess
 import sys
 import tempfile
@@ -29,37 +34,57 @@ from macsa_tpu_torch.ops import cuda_lib  # noqa: E402
 SOURCE = cuda_lib.CSRC / "fused_attention_wgmma.cu"
 FWD, BWD = "macsa_fused_attention_fwd_wgmma", "macsa_fused_attention_bwd_wgmma"
 
-# name -> [(old, new), ...]; every `old` must occur in the source
+# name -> [(old, new), ...]; every `old` must occur in the source once
 VARIANTS = {
     "whole": [],
     "fwd: no exponentials": [
         ("p[e] = __expf(s[4 * j + e] - (e < 2 ? mx_lo : mx_hi));",
          "p[e] = s[4 * j + e] - (e < 2 ? mx_lo : mx_hi);")],
     "fwd: no K and V loads": [
-        ("    load_rows(k_addr, k + base, hd, k0, NK, L, kWG);\n", ""),
-        ("    load_rows(v_addr, v + base, hd, k0, NK, L, kWG);\n", "")],
+        ("  load_rows(k_addr, k + base, hd, 0, NK, L, kWG);\n", ""),
+        ("  load_rows(v_addr, v + base, hd, 0, NK, L, kWG);\n", ""),
+        ("      load_rows(kv, k + base, hd, t * NK, NK, L, kWG);\n"
+         "      load_rows(kv + NK * kRowBytes, v + base, hd, t * NK, NK, L, kWG);\n", "")],
     "fwd: no output stores": [
-        ("  store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}",
-         "  if (L < 0) store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}")],
-    "fwd: no loads, no stores": [
-        ("  load_rows(q_addr, q + base, hd, q0, kTile, L, kWG);\n", ""),
-        ("    load_rows(k_addr, k + base, hd, k0, NK, L, kWG);\n", ""),
-        ("    load_rows(v_addr, v + base, hd, k0, NK, L, kWG);\n", ""),
-        ("  store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}",
-         "  if (L < 0) store_rows(q_tile, out + base, hd, q0, kTile, L, kWG);\n}")],
-    "fwd: two blocks an SM": [("__launch_bounds__(kWG, 3)", "__launch_bounds__(kWG, 2)")],
+        ("  store_rows(q_tile, out, hd, q0, kTile, L, kWG);\n}",
+         "  if (L < 0) store_rows(q_tile, out, hd, q0, kTile, L, kWG);\n}")],
+    "fwd: two blocks an SM": [
+        ("__launch_bounds__(kWG, 3)\nattention_fwd_wgmma_kernel",
+         "__launch_bounds__(kWG, 2)\nattention_fwd_wgmma_kernel"),
+        ("__launch_bounds__(kWG, 5)\nattention_fwd_ring_kernel",
+         "__launch_bounds__(kWG, 2)\nattention_fwd_ring_kernel")],
+    "fwd ring: three stages": [
+        ("constexpr int kFwdStages = 2;", "constexpr int kFwdStages = 3;")],
+    "fwd ring: 128 keys a pass, three blocks an SM": [
+        ("constexpr int kRingKeys = 64;", "constexpr int kRingKeys = 128;"),
+        ("__launch_bounds__(kWG, 5)\nattention_fwd_ring_kernel",
+         "__launch_bounds__(kWG, 3)\nattention_fwd_ring_kernel")],
     "bwd: no exponentials": [
         ("e.p = __expf(fmaf(s, scale, mk) - lse_i);", "e.p = fmaf(s, scale, mk) - lse_i;")],
     "bwd: no loads": [
         ("  load_rows(q_addr, q + base, hd, 0, rows, L, kBwdThreads);\n"
          "  load_rows(k_addr, k + base, hd, 0, rows, L, kBwdThreads);\n"
          "  load_rows(v_addr, v + base, hd, 0, rows, L, kBwdThreads);\n"
-         "  load_rows(g_addr, gout + base, hd, 0, rows, L, kBwdThreads);\n", "")],
+         "  load_rows(g_addr, gout + base, hd, 0, rows, L, kBwdThreads);\n", ""),
+        ("  load_rows(q_addr, q + base, hd, q0, kTile, L, kWG);  // in step 0's group\n"
+         "  load_rows(g_addr, gout + base, hd, q0, kTile, L, kWG);\n", ""),
+        ("      load_rows(kv, k + base, hd, key0(t), kTile, L, kWG);\n"
+         "      load_rows(kv + kTileBytes, v + base, hd, key0(t), kTile, L, kWG);\n", ""),
+        ("  load_rows(k_addr, k + base, hd, j0, kTile, L, kWG);  // in step 0's group\n"
+         "  load_rows(v_addr, v + base, hd, j0, kTile, L, kWG);\n", ""),
+        ("      load_rows(qg, q + base, hd, t * kTile, kTile, L, kWG);\n"
+         "      load_rows(qg + kTileBytes, gout + base, hd, t * kTile, kTile, L, kWG);\n", "")],
     "bwd: no stores": [
         ("  store_rows(q_tile, dq + base, hd, 0, rows, L, kBwdThreads);\n",
          "  if (L < 0) {\n  store_rows(q_tile, dq + base, hd, 0, rows, L, kBwdThreads);\n"),
         ("  store_rows(v_tile, dv + base, hd, 0, rows, L, kBwdThreads);\n}",
-         "  store_rows(v_tile, dv + base, hd, 0, rows, L, kBwdThreads);\n  }\n}")],
+         "  store_rows(v_tile, dv + base, hd, 0, rows, L, kBwdThreads);\n  }\n}"),
+        ("  store_rows(q_tile, dq + base, hd, q0, kTile, L, kWG);\n",
+         "  if (L < 0) store_rows(q_tile, dq + base, hd, q0, kTile, L, kWG);\n"),
+        ("  store_rows(k_tile, dk + base, hd, j0, kTile, L, kWG);\n",
+         "  if (L < 0) store_rows(k_tile, dk + base, hd, j0, kTile, L, kWG);\n"),
+        ("  store_rows(v_tile, dv + base, hd, j0, kTile, L, kWG);\n}",
+         "  if (L < 0) store_rows(v_tile, dv + base, hd, j0, kTile, L, kWG);\n}")],
     "bwd: no pass 1 (row term 0)": [
         ("    for (int kt = 0; kt < tiles; ++kt) {\n      float s[32], dp[32];",
          "    for (int kt = 0; kt < (L < 0 ? tiles : 0); ++kt) {\n      float s[32], dp[32];")],
@@ -68,12 +93,30 @@ VARIANTS = {
          "    for (int kk = 0; kk < (L < 0 ? rows / 16 : 1); ++kk)\n"
          "      wgmma::Op<64>::ss<1, 1>(acc_q,")],
     "bwd: no ds^T stores to shared memory": [
-        ("        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_lo, j) + col2 * 2) = ds_lo;\n"
-         "        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_hi, j) + col2 * 2) = ds_hi;\n",
-         "        if (L < 0) {\n"
-         "        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_lo, j) + col2 * 2) = ds_lo;\n"
-         "        *reinterpret_cast<uint32_t*>(ds_out + swizzled(j_hi, j) + col2 * 2) = ds_hi;\n"
-         "        }\n")],
+        ("key_tile_walk<true>(", "key_tile_walk<false>(")],
+    "bwd streamed: launch 1 (dq) alone": [
+        ("  attention_bwd_dkdv_kernel<<<", "  if (L < 0) attention_bwd_dkdv_kernel<<<")],
+    "bwd streamed: launch 2 (dk, dv) alone": [
+        ("  attention_bwd_dq_kernel<<<", "  if (L < 0) attention_bwd_dq_kernel<<<")],
+    "bwd streamed: three-stage rings": [
+        ("constexpr int kBwdStages = 2;", "constexpr int kBwdStages = 3;")],
+    "bwd streamed: three dq blocks an SM": [
+        ("__launch_bounds__(kWG, 4)\nattention_bwd_dq_kernel",
+         "__launch_bounds__(kWG, 3)\nattention_bwd_dq_kernel")],
+    "bwd streamed: four dk/dv blocks an SM": [
+        ("__launch_bounds__(kWG, 3)\nattention_bwd_dkdv_kernel",
+         "__launch_bounds__(kWG, 4)\nattention_bwd_dkdv_kernel")],
+    "bwd streamed: walk (b) without copies": [
+        ("    if (t < walked) {\n      const uint32_t kv",
+         "    if (t < tiles) {\n      const uint32_t kv")],
+    "bwd streamed: launch 2 copies every other tile": [
+        ("    if (t < tiles) {\n      const uint32_t qg",
+         "    if (t < tiles && t % 2 == 0) {\n      const uint32_t qg")],
+    "bwd streamed: two blocks an SM": [
+        ("__launch_bounds__(kWG, 4)\nattention_bwd_dq_kernel",
+         "__launch_bounds__(kWG, 2)\nattention_bwd_dq_kernel"),
+        ("__launch_bounds__(kWG, 3)\nattention_bwd_dkdv_kernel",
+         "__launch_bounds__(kWG, 2)\nattention_bwd_dkdv_kernel")],
 }
 
 
@@ -118,17 +161,18 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     g = torch.Generator(dev).manual_seed(0)
-    b, l, h = 48, 170, 12
-    q, k, v, gout = (torch.randn(b, l, h * 64, device=dev, generator=g).to(torch.bfloat16)
-                     for _ in range(4))
-    mask = torch.zeros(b, l, device=dev)
-    out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
-    lse = torch.empty(b, h, l, device=dev)
+    b, h = 48, 12
     stream = cuda_lib.stream_handle(dev)
     ptr = lambda *ts: [t.data_ptr() for t in ts]
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(Path(tmp))
-        for rate_args, rate in (((0, 0, 1.0, 0), 0.0), ((1, 429496730, 1.0 / 0.9, 7), 0.1)):
+        for l, (rate_args, rate) in itertools.product(
+                (170, 256), (((0, 0, 1.0, 0), 0.0), ((1, 429496730, 1.0 / 0.9, 7), 0.1))):
+            q, k, v, gout = (torch.randn(b, l, h * 64, device=dev, generator=g)
+                             .to(torch.bfloat16) for _ in range(4))
+            mask = torch.zeros(b, l, device=dev)
+            out, dq, dk, dv = (torch.empty_like(q) for _ in range(4))
+            lse, row_term = (torch.empty(b, h, l, device=dev) for _ in range(2))
             for name, lib in libs.items():
 
                 def fwd():
@@ -137,13 +181,13 @@ def main() -> int:
                     cuda_lib.check(status, FWD)
 
                 def bwd():
-                    status = getattr(lib, BWD)(*ptr(q, k, v, mask, gout, lse, dq, dk, dv), b, l,
-                                               h, *rate_args, stream)
+                    status = getattr(lib, BWD)(*ptr(q, k, v, mask, gout, lse, row_term, dq, dk,
+                                                   dv), b, l, h, *rate_args, stream)
                     cuda_lib.check(status, BWD)
 
                 fwd()  # the backward reads the forward's lse
                 torch.cuda.synchronize()
-                line = f"rate {rate} {name:40s}"
+                line = f"[{b},{l},{h * 64}] rate {rate} {name:40s}"
                 if not name.startswith("bwd"):
                     line += f" forward {event_ms(fwd):.4f} ms"
                 if not name.startswith("fwd"):

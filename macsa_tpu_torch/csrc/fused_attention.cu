@@ -38,9 +38,9 @@
 // the forward reads K and V once per query tile (6x), the backward forms
 // the scores and dP three times (~22 B H L^2 D of products in all), so they
 // are bound by shared-memory traffic and FMA throughput, not by device memory.
-// They are the variant for f32, for head width 32 and for the backward of
-// rows longer than 192; bf16 at head width 64 runs the tensor-core variant
-// of `fused_attention_wgmma.cu` (picked by `attention_variant` in
+// They are the variant for f32 and for head width 32, at any length; bf16
+// at head width 64 runs the tensor-core variant of `fused_attention_wgmma.cu`
+// at any length, both ways (picked by `attention_variant` in
 // ops/fused_attention.py).
 //
 // Design.  Forward: one block per (query tile of 32 rows, head, batch row);

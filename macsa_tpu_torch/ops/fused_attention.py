@@ -17,12 +17,15 @@ over, as between the TPU kernel and `jax.random` in the JAX package.
 On a CUDA tensor `fused_self_attention` launches the hand-written kernels:
 the forward, and under autograd the backward, each under the tensors'
 device, whatever device is current.  Each has two variants,
-picked by `attention_variant` from the dtype and the shape alone: "wgmma"
-(`macsa_tpu_torch/csrc/fused_attention_wgmma.cu`: bf16 at head width 64,
-every product on the tensor cores, the backward in one launch) and "simt"
-(`macsa_tpu_torch/csrc/fused_attention.cu`: f32 sums on the CUDA cores,
-f32 or bf16, head width 32 or 64, any length).  `cuda_lib.launch_counts`
-counts each launch under the kernel's name and under "<name>.<variant>".
+picked by `attention_variant` from the dtype and the head width alone:
+"wgmma" (`macsa_tpu_torch/csrc/fused_attention_wgmma.cu`: bf16 at head
+width 64, any length, every product on the tensor cores; past
+`WGMMA_BWD_ONE_LAUNCH_LEN` rows the forward streams its key passes and the
+backward runs two launches that stream tiles instead of one that holds a
+head) and "simt" (`macsa_tpu_torch/csrc/fused_attention.cu`: f32 sums on
+the CUDA cores, f32 or bf16, head width 32 or 64, any length).
+`cuda_lib.launch_counts` counts each call under the kernel's name and
+under "<name>.<variant>", once whatever its launches.
 On a CPU tensor it runs `attention_reference`, the plain version, and
 autograd differentiates that.
 
@@ -46,7 +49,10 @@ from macsa_tpu_torch.ops import cuda_lib
 _DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (32, 64)  # head widths the kernels are instantiated for
 WGMMA_HEAD_DIM = 64   # the tensor-core kernels: one head row is one 128-byte tile row
-WGMMA_BWD_MAX_LEN = 192  # the backward keeps a head's q, k, v, g in one block's shared memory
+# up to this length the tensor-core backward keeps a head's q, k, v, g in
+# one block's shared memory (one launch); past it, two launches stream tiles
+# and need a row-term scratch
+WGMMA_BWD_ONE_LAUNCH_LEN = 192
 
 _M32 = 0xFFFFFFFF
 _MIX1, _MIX2 = 0x7FEB352D, 0x846CA68B  # the 32-bit finalizer of csrc/fused_attention.cu
@@ -219,13 +225,13 @@ def _check_cuda_args(q, k, v, mask, num_heads, *extra):
 
 def attention_variant(dtype: torch.dtype, head_dim: int, length: int,
                       backward: bool = False) -> str:
-    """Which K1 kernel takes [B, length, H*head_dim] on a CUDA tensor:
-    "wgmma" for bf16 at head width 64 (the forward at any length, the
-    backward up to 192 rows), else "simt": f32 (TF32 products would not
-    hold the f32 tolerances), head width 32 (half a swizzled tile row), and
-    the backward of longer rows (a head no longer fits one block)."""
-    if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM \
-            and not (backward and length > WGMMA_BWD_MAX_LEN):
+    """Which K1 kernel takes [B, length, H*head_dim] on a CUDA tensor,
+    forward or `backward`: "wgmma" for bf16 at head width 64, whatever the
+    length (the kernels pick their own tiling from it), else "simt": f32
+    (TF32 products would not hold the f32 tolerances) and head width 32
+    (half a swizzled tile row).  The length and the direction do not
+    decide: both variants take every length, both ways."""
+    if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM:
         return "wgmma"
     return "simt"
 
@@ -282,17 +288,43 @@ def _launch_bwd(q, k, v, mask, lse, g, num_heads, rate, seed):
               lse.data_ptr())
     grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     tail = (*_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
-    if variant == "wgmma":  # one launch; the row term stays in the block
+    # rowsum(dp * p), written by a dq launch for the dk/dv launch; the
+    # one-launch tensor-core kernel keeps it in the block
+    two_launches = variant == "simt" or l > WGMMA_BWD_ONE_LAUNCH_LEN
+    row_term = torch.empty_like(lse) if two_launches else None
+    term_ptr = row_term.data_ptr() if two_launches else None
+    if variant == "wgmma":
         status = cuda_lib.library().macsa_fused_attention_bwd_wgmma(
-            *inputs, *grads, b, l, num_heads, *tail)
+            *inputs, term_ptr, *grads, b, l, num_heads, *tail)
     else:
-        row_term = torch.empty_like(lse)  # rowsum(dp * p), written by the dq launch
         status = cuda_lib.library().macsa_fused_attention_bwd(
-            *inputs, row_term.data_ptr(), *grads, b, l, num_heads, hd // num_heads,
+            *inputs, term_ptr, *grads, b, l, num_heads, hd // num_heads,
             int(q.dtype == torch.bfloat16), *tail)
     cuda_lib.check(status, f"macsa_fused_attention_bwd ({variant})")
     _count("fused_self_attention_bwd", variant)
     return dq, dk, dv
+
+
+@cuda_lib.on_tensor_device
+def _launch_bwd_streamed(q, k, v, mask, lse, g, num_heads, rate, seed):
+    """The tensor-core backward's two streaming launches at any length ->
+    (dq, dk, dv).  `_launch_bwd` takes them only past
+    `WGMMA_BWD_ONE_LAUNCH_LEN` rows; this lets a measurement read them at
+    shorter rows beside the one-launch kernel.  Counted nowhere: no path
+    calls it."""
+    _check_cuda_args(q, k, v, mask, num_heads, ("g", g), ("lse", lse))
+    b, l, hd = q.shape
+    if attention_variant(q.dtype, hd // num_heads, l, backward=True) != "wgmma" \
+            or g.shape != q.shape or g.dtype != q.dtype:
+        raise ValueError("the streaming backward takes bf16 q, k, v, g at head width "
+                         f"{WGMMA_HEAD_DIM}: {q.dtype} {tuple(q.shape)}, g {g.dtype}")
+    grads = [torch.empty_like(q) for _ in range(3)]
+    row_term = torch.empty_like(lse)
+    status = cuda_lib.library().macsa_fused_attention_bwd_wgmma_streamed(
+        *(x.data_ptr() for x in (q, k, v, mask, g, lse, row_term, *grads)), b, l, num_heads,
+        *_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
+    cuda_lib.check(status, "macsa_fused_attention_bwd_wgmma_streamed")
+    return tuple(grads)
 
 
 class _FusedAttention(torch.autograd.Function):

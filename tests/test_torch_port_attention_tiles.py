@@ -33,15 +33,17 @@ D, TILE, WG = tfa.WGMMA_HEAD_DIM, 64, 128  # head width; rows and threads of a w
 MASKS = {"neg10000": -10000.0, "finfo_min": float(np.finfo(np.float32).min)}
 CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
 SOURCE = (CSRC / "fused_attention_wgmma.cu").read_text()
-# keys per pass the forward is instantiated for, as its C entry point picks them
+# keys the held-row forward is instantiated for, as its C entry point picks
+# them, and the keys a pass of the ring forward takes past the widest
 KEY_PASSES = tuple(int(n) for n in re.findall(r"return launch_fwd<(\d+)>", SOURCE))
+RING_KEYS = int(re.search(r"constexpr int kRingKeys = (\d+);", SOURCE).group(1))
 INF = float("inf")
 
 
 def key_pass(length):
     """The narrowest instantiated width that takes the whole row, else the
-    widest (the kernel then walks the keys with a running max and sum)."""
-    return next((n for n in KEY_PASSES if length <= n), KEY_PASSES[-1])
+    ring's pass (the kernel then walks the keys with a running max and sum)."""
+    return next((n for n in KEY_PASSES if length <= n), RING_KEYS)
 
 
 def accumulator_coords(n):
@@ -112,7 +114,7 @@ def emulate_forward(q, k, v, mask, heads, rate, seed, nk):
 def emulate_backward(q, k, v, mask, g, lse, heads, rate, seed):
     """The one-launch backward block -> (dq, dk, dv), each [B, L, H*D]."""
     b_, l, _ = q.shape
-    assert l <= tfa.WGMMA_BWD_MAX_LEN  # a head's q, k, v, g stay in the block
+    assert l <= tfa.WGMMA_BWD_ONE_LAUNCH_LEN  # a head's q, k, v, g stay in the block
     scale = 1.0 / math.sqrt(D)
     inv = tfa._inv_keep(rate) if rate > 0.0 else 1.0
     tiles = -(-l // TILE)
@@ -220,10 +222,14 @@ def test_backward_emulation_matches_references(rng, l, mask_kind):
 
 
 def test_backward_of_a_longer_row_is_the_cuda_core_variants():
-    """193 rows: the forward walks two key passes on the tensor cores, the
-    backward's block no longer holds the head."""
+    """193 rows: no longer the CUDA-core variant's either way.  The forward
+    walks two ring passes on the tensor cores; the backward's one block no
+    longer holds the head, so the one-launch emulation refuses the row and
+    the two streaming launches take it on the tensor cores
+    (`test_torch_port_attention_long_rows.py` emulates them)."""
     assert tfa.attention_variant(BF16, D, 193) == "wgmma"
-    assert tfa.attention_variant(BF16, D, 193, backward=True) == "simt"
+    assert tfa.attention_variant(BF16, D, 193, backward=True) == "wgmma"
+    assert key_pass(193) == RING_KEYS
     x = torch.zeros(1, 193, D)
     with pytest.raises(AssertionError):
         emulate_backward(x, x, x, torch.zeros(1, 193), x, torch.zeros(1, 1, 193), 1, 0.0, 0)
@@ -233,8 +239,8 @@ def test_backward_of_a_longer_row_is_the_cuda_core_variants():
     (BF16, 64, 1, False, "wgmma"), (BF16, 64, 170, False, "wgmma"),
     (BF16, 64, 514, False, "wgmma"), (BF16, 64, 4096, False, "wgmma"),
     (BF16, 64, 1, True, "wgmma"), (BF16, 64, 170, True, "wgmma"),
-    (BF16, 64, 192, True, "wgmma"), (BF16, 64, 193, True, "simt"),
-    (BF16, 64, 514, True, "simt"),
+    (BF16, 64, 192, True, "wgmma"), (BF16, 64, 193, True, "wgmma"),
+    (BF16, 64, 514, True, "wgmma"),
     (BF16, 32, 170, False, "simt"), (BF16, 32, 170, True, "simt"),
     (F32, 64, 170, False, "simt"), (F32, 64, 170, True, "simt"),
     (F32, 32, 40, False, "simt"),
@@ -244,27 +250,48 @@ def test_attention_variant(dtype, head_dim, length, backward, want):
 
 
 @pytest.mark.parametrize("length,want", [(1, 64), (64, 64), (65, 128), (128, 128), (129, 192),
-                                         (170, 192), (192, 192), (193, 192), (514, 192)])
+                                         (170, 192), (192, 192), (193, RING_KEYS),
+                                         (514, RING_KEYS)])
 def test_key_pass_of_the_source(length, want):
-    """The C entry point's dispatch: `L <= n` for every width but the widest."""
-    assert KEY_PASSES == (64, 128, 192)
-    limits = [int(n) for n in re.findall(r"if \(L <= (\d+)\) return launch_fwd", SOURCE)]
-    assert limits == list(KEY_PASSES[:-1])
+    """The C entry point's dispatch: `L <= n` for every held width, the
+    ring's passes past the widest."""
+    assert KEY_PASSES == (64, 128, 192) and RING_KEYS == 64
+    limits = [int(n) for n in re.findall(r"if \(L <= (\d+)\) return launch_fwd<", SOURCE)]
+    assert limits == list(KEY_PASSES)
+    assert "  return launch_fwd_ring<kRingKeys>(" in SOURCE
     assert key_pass(length) == want
 
 
 def test_python_constants_are_the_sources():
     """The variant rule's limits are written twice, in `ops/fused_attention.py`
     and in the CUDA source: they must agree.  And the shared memory the
-    source asks for fits: three forward blocks an SM, one backward block."""
+    source asks for fits the blocks an SM each kernel's launch bounds
+    claim: three for the held-row forward, five for the ring forward, four
+    and three for the streaming backward's two launches, one for the
+    one-launch backward."""
     constant = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", SOURCE).group(1))
     assert constant("kD") == tfa.WGMMA_HEAD_DIM
     assert constant("kTile") == TILE
-    assert constant("kBwdRows") == tfa.WGMMA_BWD_MAX_LEN
-    align, smem = 1024, 227 * 1024
-    fwd = align + TILE * D * 2 + 2 * 192 * D * 2 + 192 * 4
-    bwd = align + 4 * 192 * D * 2 + 3 * 192 * D * 2 + 4 * 192 * 4
-    assert 3 * (fwd + 1024) <= smem and bwd <= smem  # + 1 KB that CUDA reserves per block
+    assert constant("kBwdRows") == tfa.WGMMA_BWD_ONE_LAUNCH_LEN
+    align, smem, tile = 1024, 227 * 1024, TILE * D * 2
+    fwd_stages, bwd_stages = constant("kFwdStages"), constant("kBwdStages")
+    ring_keys = constant("kRingKeys")
+    need = {
+        "attention_fwd_wgmma_kernel": align + tile + 2 * 192 * D * 2 + 192 * 4,
+        "attention_fwd_ring_kernel": align + tile + fwd_stages * (2 * ring_keys * D * 2
+                                                                  + ring_keys * 4),
+        "attention_bwd_wgmma_kernel": align + 4 * 192 * D * 2 + 3 * 192 * D * 2 + 4 * 192 * 4,
+        # two held tiles, two tiles a stage, a stage's lse, row term and hash
+        "attention_bwd_dq_kernel": align + 2 * tile + bwd_stages * (2 * tile + 3 * TILE * 4),
+    }
+    need["attention_bwd_dkdv_kernel"] = need["attention_bwd_dq_kernel"]
+    bounds = {name: int(n) for n, name in re.findall(
+        r"__launch_bounds__\((?:kWG|kBwdThreads), (\d+)\)\n(attention_\w+)\(", SOURCE)}
+    assert bounds == {"attention_fwd_wgmma_kernel": 3, "attention_fwd_ring_kernel": 5,
+                      "attention_bwd_wgmma_kernel": 1, "attention_bwd_dq_kernel": 4,
+                      "attention_bwd_dkdv_kernel": 3}
+    for name, blocks in bounds.items():  # + 1 KB that CUDA reserves per block
+        assert blocks * (need[name] + 1024) <= smem, name
 
 
 @pytest.mark.parametrize("n", [64, 128, 192])

@@ -112,11 +112,13 @@ def _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol):
 
 # the tensor-core variant's edges: one row, a ragged first tile, whole tiles
 # and one row more (64, 65; 192 is the longest row the one-launch backward
-# holds, 193 and 257 take two key passes forward and the CUDA-core backward),
-# at 64 x 12 (row, head) pairs: 768 backward blocks, 768 forward blocks per
-# query tile, several waves over the card's 132 SMs
+# holds; past it the forward walks ring passes of 128 keys and the backward
+# streams tiles in two launches: 193, 255, 256 = EF-CapTr's rows, 257, 320,
+# 514 = max_position_embeddings), at 64 x 12 (row, head) pairs: 768
+# one-launch backward blocks, 768 blocks per query or key tile otherwise,
+# several waves over the card's 132 SMs
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("l", [1, 31, 64, 65, 192, 193, 257])
+@pytest.mark.parametrize("l", [1, 31, 64, 65, 192, 193, 255, 256, 257, 320, 514])
 def test_attention_tensor_core_kernels_at_tile_edges(cuda, rate, l):
     g = torch.Generator(cuda).manual_seed(2)
     b, heads, seed = 64, 12, 4321
@@ -127,9 +129,33 @@ def test_attention_tensor_core_kernels_at_tile_edges(cuda, rate, l):
     mask = torch.zeros(b, l, device=cuda).masked_fill(
         torch.arange(l, device=cuda) >= lens[:, None], MASKS["neg10000"])
     assert fa.attention_variant(q.dtype, 64, l) == "wgmma"
-    assert fa.attention_variant(q.dtype, 64, l, backward=True) == \
-        ("wgmma" if l <= 192 else "simt")
+    assert fa.attention_variant(q.dtype, 64, l, backward=True) == "wgmma"
     _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, 3e-2)
+
+
+# the streaming backward (`_launch_bwd_streamed`) below the one-launch limit
+# too: the same function as the one-launch kernel, at one row, ragged and
+# whole tiles; counted nowhere
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("l", [1, 40, 64, 170, 192])
+def test_streamed_backward_matches_plain_at_short_rows(cuda, rate, l):
+    g = torch.Generator(cuda).manual_seed(6)
+    b, heads, seed = 16, 12, 55
+    q, k, v, gout = (torch.randn(b, l, heads * 64, device=cuda, generator=g).to(torch.bfloat16)
+                     for _ in range(4))
+    lens = torch.randint(1, l + 1, (b,), device=cuda, generator=g)
+    lens[0] = l
+    mask = torch.zeros(b, l, device=cuda).masked_fill(
+        torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
+    lse = fa._launch_fwd(q, k, v, mask, heads, rate, seed, with_lse=True)[1]
+    cuda_lib.reset_launch_counts()
+    got = fa._launch_bwd_streamed(q, k, v, mask, lse, gout, heads, rate, seed)
+    wants = fa.attention_backward_reference(q, k, v, mask, gout, heads, rate, seed)
+    torch.cuda.synchronize()
+    assert not cuda_lib.launch_counts["fused_self_attention_bwd"]
+    for name, x, w in zip("qkv", got, wants):
+        scale = w.float().abs().max().item()
+        assert (x.float() - w.float()).abs().max().item() <= 3e-2 * scale, name
 
 
 # Phase 1's shapes: the train step and the eval decode send K1 [16, 170, 768],
@@ -198,11 +224,12 @@ def test_seq2seq_decode_on_gpu_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_backward_is_bitwise_repeatable(cuda, dtype):
+@pytest.mark.parametrize("l", [170, 256])  # bf16: the one-launch and the two-launch backward
+def test_attention_backward_is_bitwise_repeatable(cuda, dtype, l):
     """No atomics in either variant: a block owns every sum it writes, so
     two backward calls on the same inputs give the same bits."""
     g = torch.Generator(cuda).manual_seed(3)
-    b, l, heads = 48, 170, 12
+    b, heads = 48, 12
     q, k, v, gout = (torch.randn(b, l, heads * 64, device=cuda, generator=g).to(dtype)
                      for _ in range(4))
     mask = torch.zeros(b, l, device=cuda)
@@ -745,8 +772,8 @@ def test_fused_backbone_on_gpu_matches_plain(cuda):
         assert _rel_err(feats["bf16"][i], want) <= 2 * _rel_err(feats["plain_bf16"][i], want)
 
 
-# EF-CapTrRoBERTa's 256 rows (`--max_cap_length`): bf16 runs the forward on
-# the tensor cores and, past 192 rows, the backward on the CUDA cores
+# EF-CapTrRoBERTa's 256 rows (`--max_cap_length`): bf16 runs both ways on
+# the tensor cores (the forward's ring passes, the backward's two launches)
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_attention_kernels_at_the_efcap_shape(cuda, dtype, tol, rate):
@@ -758,9 +785,9 @@ def test_attention_kernels_at_the_efcap_shape(cuda, dtype, tol, rate):
     lens[0] = l
     mask = torch.zeros(b, l, device=cuda).masked_fill(
         torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
-    assert fa.attention_variant(dtype, 64, l) == ("wgmma" if dtype == torch.bfloat16
-                                                   else "simt")
-    assert fa.attention_variant(dtype, 64, l, backward=True) == "simt"
+    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    assert fa.attention_variant(dtype, 64, l) == variant
+    assert fa.attention_variant(dtype, 64, l, backward=True) == variant
     _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol)
 
 
