@@ -11,10 +11,11 @@ toolkit (`nvcc`).  It builds the port's kernels from `macsa_tpu_torch/csrc`,
 holds each kernel against its plain PyTorch version at the shapes of the
 paths below (K2 at both phases' batches; K1's forward and backward with
 dropout on and off, bf16 on its tensor-core variant and f32 on its
-CUDA-core variant, also at Phase 1's batches and its eval's, and at
+3xTF32 tensor-core variant, also at Phase 1's batches and its eval's, and at
 EF-CapTrRoBERTa's 256 rows, where bf16's forward walks ring passes and its
 backward streams tiles in two launches, and the two-launch backward is read
-once beside the one-launch kernel at 170 rows; K3,
+once beside the one-launch kernel at 170 rows; the CUDA-core K1, which no
+path reaches, at head width 32, both dtypes and ways; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
 whole identity bottleneck, at all four stages; in bf16 both must run their
@@ -77,7 +78,8 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
   (K1 and K1b also held to their plain versions at that [48, 170, 384]):
   2 f32 and 2 bf16 full-width fine-tune steps and one Phase-1 step against
   one process, then `finetune.main --mp 2` for one bf16 epoch,
-* and, at the end, reads the device time of K1's and SDPA's backward,
+* and, at the end, reads the device time of K1's and SDPA's backward at
+  170 rows, queued behind a spin kernel (the host out of the way),
 and checks that each path went through its kernels.  Each phase prints
 its lines; any failure raises and the exit code is not 0.  The
 second-to-last line lists the kernels as JSON; the last line is the run's
@@ -116,9 +118,12 @@ P1_READINGS = {"float32": 1, "bfloat16": 3}  # readings of each feed (bf16 is th
 # (h = w, C, F) of the identity bottlenecks of ResNet-152's four stages at 224^2
 RESNET_STAGES = {1: (56, 256, 64), 2: (28, 512, 128), 3: (14, 1024, 256), 4: (7, 2048, 512)}
 # published peaks of one H100 SXM: device memory rate, dense bf16 tensor-core
-# rate, f32 rate outside the tensor cores
+# rate, f32 rate outside the tensor cores; and f32 products taken as three
+# TF32 products each on the tensor cores (dense TF32: 495 TFLOP/s), K1's f32
+# kernels' arithmetic: 3 FLOP at 495 TFLOP/s for each f32 FLOP
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32x3": TF32_FLOPS / 3}
 
 
 def bound(flops: float, nbytes: float, dtype) -> dict:
@@ -132,8 +137,10 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
 
 
 def bound_text(b: dict) -> str:
+    cores = ("" if "cuda_cores_bound_ms" not in b else
+             f"; {b['cuda_cores_bound_ms']:.4f} with f32 on the CUDA cores")
     return (f"bound_ms={b['bound_ms']:.4f} by {b['bound_by']} ({b['flops'] / 1e9:.4g} GFLOP, "
-            f"{b['bytes'] / 1e6:.4g} MB)")
+            f"{b['bytes'] / 1e6:.4g} MB{cores})")
 
 
 def nbytes(*tensors) -> int:
@@ -222,13 +229,9 @@ def device_profile(fn, iters: int, warmup: int, host_too: bool = True) -> list:
     return sorted(rows, reverse=True)
 
 
-def device_ms(fn, iters: int = 100, warmup: int = 5) -> float:
-    """Mean time of the device kernels `fn` launches: what a call costs the
-    card when the host is not the limit."""
-    return sum(r[0] for r in device_profile(fn, iters, warmup)) / 1e3 / iters
-
-
-K1_VARIANT = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+# K1's variant at head width 64, both ways (`attention_variant`); head width
+# 32, which no path reaches, runs "simt" (phase k1_head_width_32)
+K1_VARIANT = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 
 def expect_counts(cuda_lib, want: dict, what: str) -> None:
@@ -347,17 +350,25 @@ def attention_bound(b, l, h, d, dtype, backward: bool) -> dict:
     """Forward: QK^T and PV (4 b h l^2 d operations); q, k, v and the mask
     read, the output written.  Backward: the scores again, dP, dV, dQ, dK
     (10 b h l^2 d); q, k, v, the output's gradient, the mask and the two
-    f32 row terms read, dq, dk, dv written."""
+    f32 row terms read, dq, dk, dv written.  In f32 the operations are
+    counted as the kernels take them, three TF32 products for each f32
+    product (`bound_ms`), and beside that as f32 on the CUDA cores
+    (`cuda_cores_bound_ms`)."""
     size = torch.finfo(dtype).bits // 8
     tensor = b * l * h * d * size
     if backward:
-        return bound(10.0 * b * h * l * l * d, 7 * tensor + b * l * 4 + 2 * b * h * l * 4, dtype)
-    return bound(4.0 * b * h * l * l * d, 4 * tensor + b * l * 4, dtype)
+        flops, moved = 10.0 * b * h * l * l * d, 7 * tensor + b * l * 4 + 2 * b * h * l * 4
+    else:
+        flops, moved = 4.0 * b * h * l * l * d, 4 * tensor + b * l * 4
+    if dtype == torch.float32:
+        return {**bound(flops, moved, "tf32x3"),
+                "cuda_cores_bound_ms": bound(flops, moved, torch.float32)["bound_ms"]}
+    return bound(flops, moved, dtype)
 
 
 def phase_k1(dev, cuda_lib, fa):
     """K1 against its plain version at the text encoder's serving shape
-    (bf16 must run the tensor-core variant, f32 the CUDA-core one), beside
+    (bf16 must run the tensor-core variant, f32 the 3xTF32 one), beside
     `F.scaled_dot_product_attention` with the same additive mask."""
     g = torch.Generator(dev).manual_seed(1)
     b, l, h, d = BATCH * NUM_ASPECTS, 170, 12, 64
@@ -410,12 +421,12 @@ def phase_k1(dev, cuda_lib, fa):
 def phase_k1_bwd(dev, cuda_lib, fa):
     """K1 forward with dropout and K1's backward against their plain
     versions (same seed, so the same mask) at the train step's shape; bf16
-    must run the tensor-core variants, f32 the CUDA-core ones.  The
+    must run the tensor-core variants, f32 the 3xTF32 ones.  The
     backward and its yardstick, SDPA's backward, are each timed twice over
     100 back-to-back calls by CUDA events (two readings must agree for
     either to be a target).  SDPA's backward can only be called through
     autograd, which costs the host more than the card, so
-    `phase_k1_bwd_device` reads the device time of both once more."""
+    `phase_k1_bwd_queued` reads the device time of both once more."""
     g = torch.Generator(dev).manual_seed(5)
     b, l, h, d, seed = BATCH * NUM_ASPECTS, 170, 12, 64, 20240917
     lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
@@ -540,25 +551,92 @@ def phase_k1_bwd_streamed(dev, cuda_lib, fa) -> None:
           f"{readings[1]:.4f} {readings[2]:.4f}, one-launch {readings[3]:.4f}")
 
 
-def phase_k1_bwd_device(k1_bwd) -> None:
-    """The device time of K1's backward and of SDPA's backward (the kernels
-    alone, from `torch.profiler`), each read twice over 100 calls, at rate
-    0.  Where the host is the limit of a call through autograd this is the
-    smaller figure, and SDPA's becomes the yardstick (`library_ms`).  Run
-    after every timed path, so that no wall-clock timing has the profiler
-    in its process."""
+def phase_k1_head_width_32(dev, cuda_lib, fa) -> dict:
+    """The CUDA-core K1 ("simt", `csrc/fused_attention.cu`), which no path
+    reaches since head width 64 went to the tensor cores in both dtypes, held
+    against its plain versions at [8, 170, 384], 12 heads of 32, f32 and
+    bf16, rates 0 and 0.1, forward and backward, with the tolerances of
+    phases k1 and k1_bwd, so that no kernel the library builds goes
+    unchecked; each timed once beside its plain version.
+    -> {"out", "grad": worst absolute errors, (dtype, rate): times}."""
+    b, l, h, d, seed = BATCH, 170, 12, 32, 4242
+    fwd_tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    bwd_tol = {torch.float32: 1e-4, torch.bfloat16: 3e-2}  # of max|ref|
+    g = torch.Generator(dev).manual_seed(37)
+    lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
+    lens[0] = l
+    mask = torch.zeros(b, l, device=dev).masked_fill(
+        torch.arange(l, device=dev)[None, :] >= lens[:, None], -10000.0)
+    q, k, v, gout = (torch.randn(b, l, h * d, device=dev, generator=g) for _ in range(4))
+    report = {"out": 0.0, "grad": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        qc, kc, vc, gc = (x.to(dtype) for x in (q, k, v, gout))
+        for rate in (0.0, 0.1):
+            leaves = [x.clone().requires_grad_(True) for x in (qc, kc, vc)]
+            cuda_lib.reset_launch_counts()
+            out = fa.fused_self_attention(*leaves, mask, h, rate, seed)
+            grads = torch.autograd.grad(out, leaves, gc)
+            expect_counts(cuda_lib, {"fused_self_attention": 1, "fused_self_attention.simt": 1,
+                                     "fused_self_attention_bwd": 1,
+                                     "fused_self_attention_bwd.simt": 1},
+                          f"K1 head width 32 {dtype} rate {rate}")
+            wants = (fa.attention_reference(qc, kc, vc, mask, h, rate, seed),
+                     *fa.attention_backward_reference(qc, kc, vc, mask, gc, h, rate, seed))
+            errs = {}
+            for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), wants):
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / want.float().abs().max().item()
+                absolute = (name, rate) == ("out", 0.0)
+                if not (err <= fwd_tol[dtype] if absolute else rel <= bwd_tol[dtype]):
+                    raise AssertionError(f"K1 simt {name} [{b},{l},{h * d}] {dtype} rate {rate}: "
+                                         f"error {err} ({rel} of max|ref|)")
+                errs[name] = err if absolute else rel
+                key = "out" if name == "out" else "grad"
+                report[key] = max(report[key], err)
+            lse = fa._launch_fwd(qc, kc, vc, mask, h, rate, seed, with_lse=True)[1]
+            times = {"fwd_ms": cuda_ms(lambda: fa._launch_fwd(qc, kc, vc, mask, h, rate, seed,
+                                                              False), iters=50),
+                     "bwd_ms": cuda_ms(functools.partial(fa._launch_bwd, qc, kc, vc, mask, lse,
+                                                         gc, h, rate, seed), iters=50),
+                     "fwd_plain_ms": cuda_ms(lambda: fa.attention_reference(
+                         qc, kc, vc, mask, h, rate, seed), iters=5),
+                     "bwd_plain_ms": cuda_ms(lambda: fa.attention_backward_reference(
+                         qc, kc, vc, mask, gc, h, rate, seed), iters=5)}
+            report[(dtype, rate)] = times
+            print(f"phase k1 simt (head width 32, on no path) {str(dtype)[6:]} [{b},{l},{h * d}] "
+                  f"h={h} mask -10000 rate {rate}: errors "
+                  + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
+                  + f" (out at rate 0 absolute, atol {fwd_tol[dtype]}; else of max|ref|, tol "
+                  f"{bwd_tol[dtype]}); fwd kernel_ms={times['fwd_ms']:.4f} plain_ms="
+                  f"{times['fwd_plain_ms']:.4f}; bwd kernel_ms={times['bwd_ms']:.4f} plain_ms="
+                  f"{times['bwd_plain_ms']:.4f}")
+            del leaves, out, grads, wants, lse
+    cuda_lib.reset_launch_counts()
+    return report
+
+
+def phase_k1_bwd_queued(k1_bwd) -> None:
+    """The device time of K1's backward and of SDPA's backward at rate 0,
+    both dtypes, each read twice over 50 calls queued behind a spin kernel
+    (`queued_ms`: the host out of the way, no profiler, which under-reads
+    late in the script).  Where the host is the limit of a call through
+    autograd this is the smaller figure, and SDPA's becomes the yardstick
+    (`library_ms`).  Run after every timed path."""
     for (neg_name, dtype, rate), entry in k1_bwd.items():
         if entry["calls"] is None or neg_name != "-10000":
             continue
         backward, lib_backward = entry.pop("calls")
-        ours = [device_ms(backward) for _ in range(2)]
-        lib = [device_ms(lib_backward) for _ in range(2)]
-        entry["library_ms"] = min(entry["library_ms"], *lib)
-        steady = all(max(pair) <= 1.1 * min(pair) for pair in (ours, lib))
-        print(f"phase k1_bwd {str(dtype)[6:]} rate {rate} device time of the kernels, 100 calls "
-              f"twice (within 10%: {'yes' if steady else 'NO'}): K1 backward {ours[0]:.4f} "
-              f"{ours[1]:.4f}, SDPA backward {lib[0]:.4f} {lib[1]:.4f}; library_ms="
-              f"{entry['library_ms']:.4f}, kernel_ms={entry['ms']:.4f} (CUDA events)")
+        ours = [queued_ms(backward) for _ in range(2)]
+        lib = [queued_ms(lib_backward) for _ in range(2)]
+        entry["library_ms"] = min(entry["library_ms"], *(ms for ms, _ in lib))
+        steady = all(max(pair) <= 1.1 * min(pair)
+                     for pair in ([ms for ms, _ in ours], [ms for ms, _ in lib]))
+        ahead = all(a for _, a in ours + lib)
+        print(f"phase k1_bwd {str(dtype)[6:]} rate {rate} queued behind a spin kernel, 50 calls "
+              f"twice (within 10%: {'yes' if steady else 'NO'}; host ahead: {ahead}): K1 backward "
+              f"{ours[0][0]:.4f} {ours[1][0]:.4f}, SDPA backward {lib[0][0]:.4f} {lib[1][0]:.4f}; "
+              f"library_ms={entry['library_ms']:.4f}, kernel_ms={entry['ms']:.4f} (CUDA events, "
+              f"back to back)")
 
 
 def phase_k1_phase1_shapes(dev, cuda_lib, fa) -> dict:
@@ -716,7 +794,8 @@ def phase_k4(dev, cuda_lib, fr):
     case and dtype, with the counts set to 0 just before and read just
     after (the bf16 cases must have run the tensor-core variant, the f32
     ones the CUDA-core variant), then the comparisons and the timing,
-    beside a bf16 `torch.mm` followed by the epilogue's elementwise passes."""
+    beside a `torch.mm` in the same dtype followed by the epilogue's
+    elementwise passes."""
     g = torch.Generator(dev).manual_seed(10)
     hw, c, f = RESNET_STAGES[3]
     m = STAGE3_IMAGES * hw * hw
@@ -761,9 +840,9 @@ def phase_k4(dev, cuda_lib, fr):
         del got, want
         ms = cuda_ms(lambda: fr.fused_matmul_bn_act(*args), iters=10)
         plain_ms = cuda_ms(lambda: fr.fused_matmul_bn_act_reference(*args), iters=10)
-        library_ms = None
-        if dtype == torch.bfloat16:
-            library_ms = cuda_ms(lambda: library(*args), iters=10)
+        # `torch.mm` in the same dtype (f32: TF32 off, as everywhere in this
+        # script), then the epilogue's passes
+        library_ms = cuda_ms(lambda: library(*args), iters=10)
         x, w, mul, add, res, _ = args
         bd = bound(2.0 * x.shape[0] * x.shape[1] * w.shape[1],
                    nbytes(x, w, mul, add, res) + x.shape[0] * w.shape[1] * x.element_size(), dtype)
@@ -771,8 +850,7 @@ def phase_k4(dev, cuda_lib, fr):
                                  "library_ms": library_ms, **bd}
         print(f"phase k4 {str(dtype)[6:]} {name}: max_abs_err={err:.3g} rel {rel:.3g} "
               f"(tol {tol} of max|ref|) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-              + ("none" if library_ms is None else f"{library_ms:.4f} (bf16 mm + passes)")
-              + f" {bound_text(bd)}")
+              f"{library_ms:.4f} ({str(dtype)[6:]} mm + passes) {bound_text(bd)}")
     print(f"phase k4 launches driving the {len(calls)} cases: {launches} ({variants})")
     return report, launches
 
@@ -915,10 +993,10 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     preds16, logits16, ms16 = drive(steps.make_finetune_eval_step(model16, visual16))
     launches = dict(cuda_lib.launch_counts)
     forwards = 2 * (ITERS + 1)
-    # half the forwards are bf16 (K1 on the tensor cores), half f32 (CUDA cores)
+    # half the forwards are bf16 (K1 in bf16 on the tensor cores), half f32 (3xTF32)
     k1 = cfg.text.num_hidden_layers * forwards
     want = {"fused_self_attention": k1, "fused_self_attention.wgmma": k1 // 2,
-            "fused_self_attention.simt": k1 // 2, "device_normalize": 2 * forwards}
+            "fused_self_attention.tf32x3": k1 // 2, "device_normalize": 2 * forwards}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     for name, logits in (("f32", logits32), ("bf16", logits16)):
@@ -949,7 +1027,7 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
           f"pred agreement {agree:.3f}; {ms16:.2f} ms/forward, "
           f"{pairs * 1e3 / ms16:.1f} pairs/s on {card}")
     print(f"phase slice launches over {forwards} forwards: {launches} (12 K1 per forward: "
-          f"tensor-core variant in bf16, CUDA-core in f32)")
+          f"wgmma variant in bf16, tf32x3 in f32)")
     return launches
 
 
@@ -1016,7 +1094,7 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             "box_attention": forwards,
             "fused_self_attention": cfg.text.num_hidden_layers * forwards,
             "fused_self_attention.wgmma": cfg.text.num_hidden_layers * forwards // 2,
-            "fused_self_attention.simt": cfg.text.num_hidden_layers * forwards // 2,
+            "fused_self_attention.tf32x3": cfg.text.num_hidden_layers * forwards // 2,
             "device_normalize": 2 * forwards}
     if launches != want:
         raise AssertionError(f"fused launch counts {launches} != {want}")
@@ -1087,8 +1165,8 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
               f"(stage 3 through K5) {fused_ms:.2f} ms/pass, plain {plain_ms:.2f} ms/pass on "
               f"{card}")
     print(f"phase fused launches over {forwards} forwards: {launches} ({identity_blocks} K5 "
-          f"and {cfg.text.num_hidden_layers} K1 (tensor-core variants in bf16, CUDA-core in "
-          f"f32), 1 K3, 2 K2 per forward)")
+          f"and {cfg.text.num_hidden_layers} K1 (K5 on the CUDA cores in f32; K1 tf32x3 in "
+          f"f32; both wgmma in bf16), 1 K3, 2 K2 per forward)")
     return launches, times
 
 
@@ -1197,16 +1275,15 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
         if not all(math.isfinite(x) for x in losses) or not sum(losses[-3:]) / 3 < losses[0]:
             raise AssertionError(f"train {dtype}: losses {losses} not finite and falling")
         results[dtype] = (ms, losses, issue_ms, cpu_ms)
-        if dtype != "bfloat16":  # the bf16 step is profiled below
-            del step
-            torch.cuda.empty_cache()
+        if dtype == "float32":  # profiled below, after the counts are read
+            step32 = step
     launches = dict(cuda_lib.launch_counts)
     n_steps = 2 * (TRAIN_STEPS + 1)
     # no K3: with dropout active the box head takes its plain path, as in JAX
     k1 = cfg.text.num_hidden_layers * n_steps
     want = {"device_normalize": 2 * n_steps}
     for name in ("fused_self_attention", "fused_self_attention_bwd"):
-        want.update({name: k1, f"{name}.wgmma": k1 // 2, f"{name}.simt": k1 // 2})
+        want.update({name: k1, f"{name}.wgmma": k1 // 2, f"{name}.tf32x3": k1 // 2})
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     for dtype, (ms, losses, issue_ms, cpu_ms) in results.items():
@@ -1215,7 +1292,7 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
               f"ms/step, {cpu_ms:.2f} ms/step of process CPU time), on {card}; losses "
               + " ".join(f"{x:.4f}" for x in losses))
     print(f"phase train launches over {n_steps} steps: {launches} (12 K1 forward, "
-          f"12 K1 backward (tensor-core variants in bf16, CUDA-core in f32), 2 K2, 0 K3 per "
+          f"12 K1 backward (wgmma variants in bf16, tf32x3 in f32), 2 K2, 0 K3 per "
           f"step: dropout 0.1 takes the box head's plain path)")
     # where the bf16 step's device time goes (after the counts were read)
     rows = device_profile(lambda: step(batch, seed=0), iters=PROFILE_STEPS, warmup=0)
@@ -1226,6 +1303,18 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     for rank, (us, calls, name) in enumerate(rows):
         if rank < PROFILE_ROWS or "attention_" in name:  # K1's kernels wherever they rank
             print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  {name[:100]}")
+    # the f32 step's device time and K1's share of it (the 3xTF32 kernels)
+    rows = device_profile(lambda: step32(batch, seed=0), iters=PROFILE_STEPS, warmup=0)
+    k1_us = sum(r[0] for r in rows if "attention_" in r[2])
+    print(f"phase train float32 profile: {sum(r[0] for r in rows) / 1e3 / PROFILE_STEPS:.2f} "
+          f"ms/step of device time in {sum(r[1] for r in rows) // PROFILE_STEPS} kernels a step, "
+          f"K1 and K1b {k1_us / 1e3 / PROFILE_STEPS:.3f} of it (torch.profiler, {PROFILE_STEPS} "
+          f"steps); ms/step x calls/step:")
+    for rank, (us, calls, name) in enumerate(rows):
+        if rank < 6 or "attention_" in name:
+            print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  {name[:100]}")
+    del step32
+    torch.cuda.empty_cache()
 
     # the host cost of the device guard around every launch (26 a step):
     # the bf16 step with it, without, without, with; and one guard alone
@@ -1439,8 +1528,8 @@ def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, st
     loss_k.backward()
     k1 = cfg.text.num_hidden_layers
     expect_counts(cuda_lib, {"device_normalize": 2, "fused_self_attention": k1,
-                             "fused_self_attention.simt": k1, "fused_self_attention_bwd": k1,
-                             "fused_self_attention_bwd.simt": k1}, "pretrain grad check")
+                             "fused_self_attention.tf32x3": k1, "fused_self_attention_bwd": k1,
+                             "fused_self_attention_bwd.tf32x3": k1}, "pretrain grad check")
     loss_p, _ = steps.pretrain_loss(plain, visual, plain_batch)
     loss_p.backward()
     torch.cuda.synchronize()
@@ -1557,7 +1646,7 @@ def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, st
               f"batch: " + " ".join(f"{x:.4f}" for x in results[dtype]))
     n_steps = sum(len(results[dtype]) for dtype in ("float32", "bfloat16"))
     print(f"phase pretrain_step launches over {n_steps} steps: {launches} (a step: 12 K1 "
-          f"forward, 12 K1 backward (tensor-core variants in bf16, CUDA-core in f32), 2 K2 cold "
+          f"forward, 12 K1 backward (wgmma variants in bf16, tf32x3 in f32), 2 K2 cold "
           f"and 0 on cached features, 0 K3)")
     # where the bf16 step's device time goes (after the counts were read)
     step, feeds = keep
@@ -1616,7 +1705,7 @@ def phase_decode(dev, card, cuda_lib, config, layers, seq2seq, resnet, steps):
     torch.cuda.synchronize()
     launches = dict(cuda_lib.launch_counts)
     k1 = cfg.text.num_hidden_layers  # the encoder runs once a call, the decoder has no K1
-    want = {"fused_self_attention": 6 * k1, "fused_self_attention.simt": 3 * k1,
+    want = {"fused_self_attention": 6 * k1, "fused_self_attention.tf32x3": 3 * k1,
             "fused_self_attention.wgmma": 3 * k1}
     if launches != want:
         raise AssertionError(f"decode launch counts {launches} != {want}")
@@ -2096,8 +2185,8 @@ def phase_mde(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_pr
     kernel_s = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     want = {"device_normalize": 8, "fused_self_attention": 48, "fused_self_attention.wgmma": 24,
-            "fused_self_attention.simt": 24, "fused_self_attention_bwd": 24,
-            "fused_self_attention_bwd.wgmma": 12, "fused_self_attention_bwd.simt": 12}
+            "fused_self_attention.tf32x3": 24, "fused_self_attention_bwd": 24,
+            "fused_self_attention_bwd.wgmma": 12, "fused_self_attention_bwd.tf32x3": 12}
     if launches != want:
         raise AssertionError(f"mde launch counts {launches} != {want}")
     got.update({(dt, "plain"): run(dt, "plain") for dt in dts})
@@ -2170,9 +2259,9 @@ def phase_serve(card, cuda_lib, cli, fcmf, steps, data, ft_out, taggers, work):
     single_s = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     forwards = SERVE_RECORDS // SERVE_BATCH + 1
-    want = {"fused_self_attention": 12 * forwards, "fused_self_attention.simt": 12 * forwards}
+    want = {"fused_self_attention": 12 * forwards, "fused_self_attention.tf32x3": 12 * forwards}
     if launches != want:
-        raise AssertionError(f"serve launches {launches} != {want} (f32: K1's CUDA-core "
+        raise AssertionError(f"serve launches {launches} != {want} (f32: K1's 3xTF32 "
                              f"variant; host-normalized pixels: no K2)")
     with open(out_jsonl) as f:
         rows = [json.loads(line) for line in f]
@@ -2221,7 +2310,7 @@ def phase_k1_tp_shapes(dev, cuda_lib, fa) -> dict:
     """K1's forward and backward against their plain versions at one mp
     rank's share of the text encoder under tensor parallelism at mp 2 (phase
     tp): [48, 170, 384], 6 heads of 64 (bf16 on the tensor cores both ways,
-    f32 on the CUDA cores) (`k1_at_shape`)."""
+    f32 as three TF32 products on them) (`k1_at_shape`)."""
     return k1_at_shape(dev, cuda_lib, fa, 170, 6, "mp 2 rank's shape", 31, 13)
 
 
@@ -2597,7 +2686,7 @@ def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out,
     224^2, 7 images, 4 ROIs) exported at batch 8 with
     `use_pallas_box_attention`, in f32 (TF32 off) and bf16, loaded, and
     `predict` run on the first 8 of the serve phase's records: 12 K1
-    launches a call (simt in f32, wgmma in bf16) and one K3.  The f32
+    launches a call (tf32x3 in f32, wgmma in bf16) and one K3.  The f32
     bundle's logits against the live `make_finetune_eval_step` (atol 1e-5,
     argmax equal), the bf16 bundle's against the f32 one (the JAX test's
     atol 0.15, rtol 0.2); export and load in seconds, `predict` in ms (wall
@@ -2635,7 +2724,7 @@ def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out,
 
     # the main path: every count from 0, read right after each predict
     logits, launches = {}, collections.Counter()
-    for dtype, variant in (("float32", "simt"), ("bfloat16", "wgmma")):
+    for dtype, variant in (("float32", "tf32x3"), ("bfloat16", "wgmma")):
         cuda_lib.reset_launch_counts()
         logits[dtype] = bundles[dtype].predict(batch)
         torch.cuda.synchronize()
@@ -2699,7 +2788,7 @@ def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out,
                                str(SERVE_BATCH), "--output_file", out])
     forwards = -(-len(records) // SERVE_BATCH)
     expect_counts(cuda_lib, {"fused_self_attention": 12 * forwards,
-                             "fused_self_attention.simt": 12 * forwards,
+                             "fused_self_attention.tf32x3": 12 * forwards,
                              "box_attention": forwards}, "the CLI with --bundle")
     launches.update(cuda_lib.launch_counts)
     rows = []
@@ -2913,8 +3002,8 @@ def phase_ddp(dev, card, cuda_lib, finetune, data, work):
     for path in outs:
         with open(path) as f:
             ranks.append(json.load(f))
-    per_step = {"fused_self_attention": 12, "fused_self_attention.simt": 12,
-                "fused_self_attention_bwd": 12, "fused_self_attention_bwd.simt": 12}
+    per_step = {"fused_self_attention": 12, "fused_self_attention.tf32x3": 12,
+                "fused_self_attention_bwd": 12, "fused_self_attention_bwd.tf32x3": 12}
     for r, got in enumerate(ranks):
         loss_gap = max(abs(a - b) for a, b in zip(got["losses"], ref_losses))
         if not loss_gap <= 1e-4 or not got["param_rel_err"] <= 1e-3:
@@ -3112,13 +3201,13 @@ def phase_tp(dev, card, cuda_lib, data, work):
         if not rel <= 2e-2:
             raise AssertionError(f"phase tp bf16 rank {r}: losses {bf16['losses']} vs mp 1 "
                                  f"{bf16_ref}")
-        if f32["launches"] != {k: 2 * v for k, v in per_step("simt").items()} or \
+        if f32["launches"] != {k: 2 * v for k, v in per_step("tf32x3").items()} or \
                 bf16["launches"] != {k: 2 * v for k, v in per_step("wgmma").items()}:
             raise AssertionError(f"phase tp rank {r} launches {f32['launches']}, "
                                  f"{bf16['launches']}")
         if not abs(p1["loss"] - p1_loss) <= 1e-4 or not p1["param_gap"][0] <= 1e-3 or \
                 p1["table_rows"] != 15004 // TP_WORLD or \
-                p1["launches"] != per_step("simt"):
+                p1["launches"] != per_step("tf32x3"):
             raise AssertionError(f"phase tp Phase 1 rank {r}: {p1} vs mp 1 loss {p1_loss}")
         if got["driver"]["steps"] != steps_c or got["driver"]["kernel_launches"] != want_c:
             raise AssertionError(f"phase tp driver rank {r}: {got['driver']}")
@@ -3214,6 +3303,7 @@ def main() -> int:
     k1_phase1 = run(phase_k1_phase1_shapes, dev, cuda_lib, fa)
     k1_baselines = run(phase_k1_baseline_shapes, dev, cuda_lib, fa)
     k1_tp = run(phase_k1_tp_shapes, dev, cuda_lib, fa)
+    k1_simt = run(phase_k1_head_width_32, dev, cuda_lib, fa)
     k3 = run(phase_k3, dev, ba, cuda_lib)
     k4, k4_launches = run(phase_k4, dev, cuda_lib, fr)
     k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
@@ -3243,7 +3333,7 @@ def main() -> int:
         tp_launches = run(phase_tp, dev, smi, cuda_lib, data, work)
         captions = run(phase_captions, dev, smi, data, work)
         baseline_launches = run(phase_baselines, dev, smi, cuda_lib, data, captions, work)
-    run(phase_k1_bwd_device, k1_bwd)
+    run(phase_k1_bwd_queued, k1_bwd)
 
     def entry(name, source, replaces, launched, err, timed):
         """One kernel of the `kernels` line: its launches on the paths, its
@@ -3263,9 +3353,9 @@ def main() -> int:
     bf16 = torch.bfloat16
     k1_bwd0 = k1_bwd[("-10000", bf16, 0.0)]  # rate 0: the case SDPA's backward is timed at
     k1_err = max([r["err"] for r in k1.values()] + [r["err"]["out"] for r in k1_bwd.values()]
-                 + [k1_phase1["out"], k1_baselines["out"], k1_tp["out"]])
+                 + [k1_phase1["out"], k1_baselines["out"], k1_tp["out"], k1_simt["out"]])
     k1b_err = max([max(r["err"][n] for n in ("dq", "dk", "dv")) for r in k1_bwd.values()]
-                  + [k1_phase1["grad"], k1_baselines["grad"], k1_tp["grad"]])
+                  + [k1_phase1["grad"], k1_baselines["grad"], k1_tp["grad"], k1_simt["grad"]])
     phase1 = (step_launches, decode_launches, pretrain_launches)
     later = (ft_cnn_launches, mde_launches, serve_launches, bundle_launches, ddp_launches,
              tp_launches, baseline_launches)
@@ -3275,21 +3365,42 @@ def main() -> int:
         serve, bundle, ddp, tp and baselines phases'."""
         return sum(path.get(name, 0) for path in phase1 + later)
 
-    def at_shape(which: str, report: dict, rows: int, width: int) -> dict:
-        """K1's (`fwd`) or K1b's (`bwd`) bf16 times at [48, rows, width],
-        rate 0 (EF-CapTr's rows; an mp 2 rank's heads): the variant it ran,
-        its time, plain, bound, SDPA's.  The backward's `ms` and `library_ms`
-        are each side's smaller reading, back to back or queued behind a
-        spin kernel (`queued_ms`)."""
-        t = report[(bf16, 0.0)]
+    def at_shape(which: str, report: dict, rows: int, width: int, dtype=bf16) -> dict:
+        """K1's (`fwd`) or K1b's (`bwd`) times at [48, rows, width], rate 0
+        (EF-CapTr's rows; an mp 2 rank's heads): the variant it ran, its
+        time, plain, bound (in f32 also with f32 on the CUDA cores), SDPA's.
+        The backward's `ms` and `library_ms` are each side's smaller
+        reading, back to back or queued behind a spin kernel (`queued_ms`)."""
+        t = report[(dtype, 0.0)]
         ms, library_ms = t[f"{which}_ms"], t[f"{which}_library_ms"]
         if which == "bwd":
             ms = min(ms, t["bwd_queued"][0])
             library_ms = min(library_ms, t["bwd_library_queued"][0])
+        bd = t[f"{which}_bound"]
         return {"shape": [BATCH * NUM_ASPECTS, rows, width], "variant": t[f"{which}_variant"],
-                "ms": ms, "plain_ms": t[f"{which}_plain_ms"],
-                "bound_ms": t[f"{which}_bound"]["bound_ms"],
-                "bound_by": t[f"{which}_bound"]["bound_by"], "library_ms": library_ms}
+                "ms": ms, "plain_ms": t[f"{which}_plain_ms"], "bound_ms": bd["bound_ms"],
+                "bound_by": bd["bound_by"], "library_ms": library_ms,
+                **({"cuda_cores_bound_ms": bd["cuda_cores_bound_ms"]}
+                   if "cuda_cores_bound_ms" in bd else {})}
+
+    def f32_at_170(report: dict) -> dict:
+        """K1's or K1b's f32 times at the train step's [48, 170, 768], rate
+        0, mask -10000 (phases k1, k1_bwd), beside its two bounds and SDPA."""
+        return {"shape": [BATCH * NUM_ASPECTS, 170, 768], "variant": K1_VARIANT[torch.float32],
+                "ms": report["ms"], "plain_ms": report["plain_ms"],
+                "bound_ms": report["bound_ms"], "bound_by": report["bound_by"],
+                "cuda_cores_bound_ms": report["cuda_cores_bound_ms"],
+                "library_ms": report["library_ms"]}
+
+    def head_width_32(which: str) -> dict:
+        """The CUDA-core variant, on no path, at [8, 170, 384] with 12 heads
+        of 32, rate 0 (phase k1_head_width_32): its bf16 and f32 times."""
+        return {"shape": [BATCH, 170, 384], "variant": "simt",
+                "source": "macsa_tpu_torch/csrc/fused_attention.cu", "max_abs_err": k1_simt[
+            "out" if which == "fwd" else "grad"],
+                **{str(dt)[6:]: {"ms": k1_simt[(dt, 0.0)][f"{which}_ms"],
+                                 "plain_ms": k1_simt[(dt, 0.0)][f"{which}_plain_ms"]}
+                   for dt in (bf16, torch.float32)}}
     k4_conv1 = next(r for (name, dt), r in k4.items() if name.startswith("conv1") and dt == bf16)
     kernels = [
         entry("fused_self_attention", "fused_attention_wgmma.cu",
@@ -3318,9 +3429,15 @@ def main() -> int:
               "tools_dev/fused_resnet_experiment.py:208", fused_launches["fused_bottleneck"],
               max(r["err"] for r in k5.values()), k5[(3, bf16)]),
     ]
-    for kernel, which in zip(kernels[:2], ("fwd", "bwd")):
+    f32_170 = (k1[("-10000", torch.float32)], k1_bwd[("-10000", torch.float32, 0.0)])
+    for kernel, which, f32_report in zip(kernels[:2], ("fwd", "bwd"), f32_170):
         kernel["at_256_rows"] = at_shape(which, k1_baselines, 256, 768)
         kernel["at_mp2_rank"] = at_shape(which, k1_tp, 170, 384)
+        kernel["f32"] = {"source": "macsa_tpu_torch/csrc/fused_attention_tf32.cu",
+                         "at_170_rows": f32_at_170(f32_report),
+                         "at_256_rows": at_shape(which, k1_baselines, 256, 768, torch.float32),
+                         "at_mp2_rank": at_shape(which, k1_tp, 170, 384, torch.float32)}
+        kernel["head_width_32"] = head_width_32(which)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -29,19 +29,19 @@
 // heads and queries.  lse and row_term are [B, H, L] f32.
 //
 // What bounds them on the H100 (3.35 TB/s; 67 TFLOP/s f32 outside the
-// tensor cores): at the train shape (B*A = 48 views, L = 170, H = 12,
-// D = 64) the forward is 4 B H L^2 D = 4.261 GFLOP and moves q, k, v, the
-// output and the mask row once each, 50.17 MB in bf16 (0.0150 ms; 100.3 MB
-// in f32); the backward is 10 B H L^2 D = 10.65 GFLOP (the scores again, dP,
-// dV, dQ, dK) and moves q, k, v, g, dq, dk, dv, the mask row and two f32 row
-// terms, 88.55 MB in bf16 (0.0264 ms).  These CUDA-core kernels recompute:
-// the forward reads K and V once per query tile (6x), the backward forms
-// the scores and dP three times (~22 B H L^2 D of products in all), so they
-// are bound by shared-memory traffic and FMA throughput, not by device memory.
-// They are the variant for f32 and for head width 32, at any length; bf16
-// at head width 64 runs the tensor-core variant of `fused_attention_wgmma.cu`
-// at any length, both ways (picked by `attention_variant` in
-// ops/fused_attention.py).
+// tensor cores): the forward is 4 B H L^2 D operations, the backward
+// 10 B H L^2 D (the scores again, dP, dV, dQ, dK), over q, k, v, the output
+// (or g, dq, dk, dv), the mask row and f32 row terms moved once each.  These
+// CUDA-core kernels recompute: the forward reads K and V once per query tile,
+// the backward forms the scores and dP three times (~22 B H L^2 D of
+// products in all), so they are bound by shared-memory traffic and FMA
+// throughput, not by device memory.
+// They are the variant for head width 32, f32 or bf16, at any length, which
+// no path of the port reaches (`chip_smoke.py` phase k1_head_width_32 holds
+// them to their plain versions); at head width 64 bf16 runs the tensor-core
+// variant of `fused_attention_wgmma.cu` and f32 the three-TF32-product one
+// of `fused_attention_tf32.cu`, at any length, both ways (picked by
+// `attention_variant` in ops/fused_attention.py).
 //
 // Design.  Forward: one block per (query tile of 32 rows, head, batch row);
 // 4 warps, each owning 8 query rows.  The block walks the keys in tiles of
@@ -506,7 +506,7 @@ bool bad_geometry(int B, int L, int H) {
 
 }  // namespace
 
-// q/k/v/out: [B, L, H*D] contiguous, f32 (bf16 == 0) or bf16 (bf16 == 1);
+// q/k/v/out: [B, L, H*D] contiguous, D = 32, f32 (bf16 == 0) or bf16 (bf16 == 1);
 // mask: [B, L] f32; lse: [B, H, L] f32, or NULL when no backward follows.
 // Dropout when `dropout` != 0: keep iff bits >= keep_threshold, kept probs
 // scaled by inv_keep.  Returns cudaGetLastError() after the launch.
@@ -518,15 +518,9 @@ extern "C" int macsa_fused_attention_fwd(const void* q, const void* k, const voi
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
-  if (D == 64) {
-    bf16 ? launch_fwd<__nv_bfloat16, 64>(q, k, v, mask, out, lse, B, L, H, drop, s)
-         : launch_fwd<float, 64>(q, k, v, mask, out, lse, B, L, H, drop, s);
-  } else if (D == 32) {
-    bf16 ? launch_fwd<__nv_bfloat16, 32>(q, k, v, mask, out, lse, B, L, H, drop, s)
-         : launch_fwd<float, 32>(q, k, v, mask, out, lse, B, L, H, drop, s);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  if (D != 32) return cudaErrorInvalidValue;
+  bf16 ? launch_fwd<__nv_bfloat16, 32>(q, k, v, mask, out, lse, B, L, H, drop, s)
+       : launch_fwd<float, 32>(q, k, v, mask, out, lse, B, L, H, drop, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -542,17 +536,9 @@ extern "C" int macsa_fused_attention_bwd(const void* q, const void* k, const voi
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
-  if (D == 64) {
-    return bf16 ? launch_bwd<__nv_bfloat16, 64>(q, k, v, mask, g, lse, row_term, dq, dk, dv,
-                                                B, L, H, drop, s)
-                : launch_bwd<float, 64>(q, k, v, mask, g, lse, row_term, dq, dk, dv, B, L,
-                                        H, drop, s);
-  }
-  if (D == 32) {
-    return bf16 ? launch_bwd<__nv_bfloat16, 32>(q, k, v, mask, g, lse, row_term, dq, dk, dv,
-                                                B, L, H, drop, s)
-                : launch_bwd<float, 32>(q, k, v, mask, g, lse, row_term, dq, dk, dv, B, L,
-                                        H, drop, s);
-  }
-  return cudaErrorInvalidValue;
+  if (D != 32) return cudaErrorInvalidValue;
+  return bf16 ? launch_bwd<__nv_bfloat16, 32>(q, k, v, mask, g, lse, row_term, dq, dk, dv, B,
+                                              L, H, drop, s)
+              : launch_bwd<float, 32>(q, k, v, mask, g, lse, row_term, dq, dk, dv, B, L, H,
+                                      drop, s);
 }

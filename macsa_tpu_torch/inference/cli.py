@@ -23,8 +23,9 @@ What differs from the JAX CLI:
 * `--image_model_checkpoint` / `--roi_model_checkpoint` take the files the
   port's labelers write (`tools/classifier_io.py`), or reference `.pth`s.
 * The forward computes in f32, as the JAX CLI does (`dtype="float32"`): K1
-  runs its CUDA-core variant.  TF32 is off in cuBLAS and cuDNN for the
-  process, so f32 means f32.  The pixels are host-normalized floats, which
+  runs its "tf32x3" variant, three TF32 products on the tensor cores for
+  each f32 product, within f32's tolerances.  TF32 is off in cuBLAS and
+  cuDNN for the process, so f32 means f32.  The pixels are host-normalized floats, which
   `device_normalize` only casts: K2 does not run here.
 * `--fused_attention auto|on|off` as in the drivers (`auto`: the kernel on
   the card).  `--scan_layers` is accepted and ignored (it picks a layout

@@ -56,6 +56,10 @@ _SIGNATURES = {
     "macsa_fused_attention_bwd_wgmma": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P],
     # the same arguments: the two streaming launches at any length (measurement only)
     "macsa_fused_attention_bwd_wgmma_streamed": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P],
+    # the f32 tensor-core variants (csrc/fused_attention_tf32.cu), head width 64: the
+    # same arguments as the bf16 ones (the backward's row_term is required)
+    "macsa_fused_attention_fwd_tf32x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _U, _P],
+    "macsa_fused_attention_bwd_tf32x3": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P],
     # words, out, frames, words_per_frame, bf16, inv255, mean[3], inv_std[3], stream
     "macsa_unpack_normalize": [_P, _P, _LL, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     # bytes, out, n, bf16, inv255, mean[3], inv_std[3], stream

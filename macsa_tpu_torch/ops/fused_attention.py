@@ -16,14 +16,17 @@ over, as between the TPU kernel and `jax.random` in the JAX package.
 
 On a CUDA tensor `fused_self_attention` launches the hand-written kernels:
 the forward, and under autograd the backward, each under the tensors'
-device, whatever device is current.  Each has two variants,
+device, whatever device is current.  Each has three variants,
 picked by `attention_variant` from the dtype and the head width alone:
 "wgmma" (`macsa_tpu_torch/csrc/fused_attention_wgmma.cu`: bf16 at head
 width 64, any length, every product on the tensor cores; past
 `WGMMA_BWD_ONE_LAUNCH_LEN` rows the forward streams its key passes and the
 backward runs two launches that stream tiles instead of one that holds a
-head) and "simt" (`macsa_tpu_torch/csrc/fused_attention.cu`: f32 sums on
-the CUDA cores, f32 or bf16, head width 32 or 64, any length).
+head), "tf32x3" (`macsa_tpu_torch/csrc/fused_attention_tf32.cu`: f32 at
+head width 64, any length, every f32 product as three TF32 products on the
+tensor cores, `mma.sync`; the backward is two launches) and "simt"
+(`macsa_tpu_torch/csrc/fused_attention.cu`: f32 sums on the CUDA cores,
+f32 or bf16 at head width 32, any length).
 `cuda_lib.launch_counts` counts each call under the kernel's name and
 under "<name>.<variant>", once whatever its launches.
 On a CPU tensor it runs `attention_reference`, the plain version, and
@@ -53,6 +56,9 @@ WGMMA_HEAD_DIM = 64   # the tensor-core kernels: one head row is one 128-byte ti
 # one block's shared memory (one launch); past it, two launches stream tiles
 # and need a row-term scratch
 WGMMA_BWD_ONE_LAUNCH_LEN = 192
+# the f32 tensor-core kernels: query rows a block owns, and the keys (or
+# queries) of each tile it walks (`kTile` of csrc/fused_attention_tf32.cu)
+TF32X3_TILE = 64
 
 _M32 = 0xFFFFFFFF
 _MIX1, _MIX2 = 0x7FEB352D, 0x846CA68B  # the 32-bit finalizer of csrc/fused_attention.cu
@@ -226,14 +232,15 @@ def _check_cuda_args(q, k, v, mask, num_heads, *extra):
 def attention_variant(dtype: torch.dtype, head_dim: int, length: int,
                       backward: bool = False) -> str:
     """Which K1 kernel takes [B, length, H*head_dim] on a CUDA tensor,
-    forward or `backward`: "wgmma" for bf16 at head width 64, whatever the
-    length (the kernels pick their own tiling from it), else "simt": f32
-    (TF32 products would not hold the f32 tolerances) and head width 32
-    (half a swizzled tile row).  The length and the direction do not
-    decide: both variants take every length, both ways."""
-    if dtype == torch.bfloat16 and head_dim == WGMMA_HEAD_DIM:
-        return "wgmma"
-    return "simt"
+    forward or `backward`: at head width 64, "wgmma" for bf16 (the kernels
+    pick their own tiling from the length) and "tf32x3" for f32 (three TF32
+    products for each f32 product hold the f32 tolerances, where one would
+    not); at head width 32 (half a swizzled tile row), "simt" for both.
+    The length and the direction do not decide: every variant takes every
+    length, both ways."""
+    if head_dim != WGMMA_HEAD_DIM:
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _count(name: str, variant: str) -> None:
@@ -264,6 +271,9 @@ def _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse):
     if variant == "wgmma":
         status = cuda_lib.library().macsa_fused_attention_fwd_wgmma(
             *pointers, b, l, num_heads, *tail)
+    elif variant == "tf32x3":
+        status = cuda_lib.library().macsa_fused_attention_fwd_tf32x3(
+            *pointers, b, l, num_heads, *tail)
     else:
         status = cuda_lib.library().macsa_fused_attention_fwd(
             *pointers, b, l, num_heads, hd // num_heads, int(q.dtype == torch.bfloat16), *tail)
@@ -289,12 +299,15 @@ def _launch_bwd(q, k, v, mask, lse, g, num_heads, rate, seed):
     grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     tail = (*_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
     # rowsum(dp * p), written by a dq launch for the dk/dv launch; the
-    # one-launch tensor-core kernel keeps it in the block
-    two_launches = variant == "simt" or l > WGMMA_BWD_ONE_LAUNCH_LEN
+    # one-launch bf16 tensor-core kernel keeps it in the block
+    two_launches = variant != "wgmma" or l > WGMMA_BWD_ONE_LAUNCH_LEN
     row_term = torch.empty_like(lse) if two_launches else None
     term_ptr = row_term.data_ptr() if two_launches else None
     if variant == "wgmma":
         status = cuda_lib.library().macsa_fused_attention_bwd_wgmma(
+            *inputs, term_ptr, *grads, b, l, num_heads, *tail)
+    elif variant == "tf32x3":
+        status = cuda_lib.library().macsa_fused_attention_bwd_tf32x3(
             *inputs, term_ptr, *grads, b, l, num_heads, *tail)
     else:
         status = cuda_lib.library().macsa_fused_attention_bwd(

@@ -269,11 +269,11 @@ def test_streamed_backward_emulation_matches_references(rng, l, mask_kind, rate,
 @pytest.mark.parametrize("length", LENGTHS + [514])
 def test_long_rows_run_on_the_tensor_cores_both_ways(length):
     """Past the one-launch limit bf16 at head width 64 stays "wgmma" both
-    ways; f32 and head width 32 stay "simt"."""
+    ways, f32 at head width 64 "tf32x3"; head width 32 stays "simt"."""
     assert length > tfa.WGMMA_BWD_ONE_LAUNCH_LEN
     for backward in (False, True):
         assert tfa.attention_variant(BF16, D, length, backward) == "wgmma"
-        assert tfa.attention_variant(torch.float32, D, length, backward) == "simt"
+        assert tfa.attention_variant(torch.float32, D, length, backward) == "tf32x3"
         assert tfa.attention_variant(BF16, 32, length, backward) == "simt"
 
 

@@ -242,8 +242,9 @@ def test_backward_of_a_longer_row_is_the_cuda_core_variants():
     (BF16, 64, 192, True, "wgmma"), (BF16, 64, 193, True, "wgmma"),
     (BF16, 64, 514, True, "wgmma"),
     (BF16, 32, 170, False, "simt"), (BF16, 32, 170, True, "simt"),
-    (F32, 64, 170, False, "simt"), (F32, 64, 170, True, "simt"),
-    (F32, 32, 40, False, "simt"),
+    (F32, 64, 170, False, "tf32x3"), (F32, 64, 170, True, "tf32x3"),
+    (F32, 32, 40, False, "simt"), (F32, 32, 170, True, "simt"),
+    (BF16, 32, 256, False, "simt"), (F32, 32, 256, True, "simt"),
 ])
 def test_attention_variant(dtype, head_dim, length, backward, want):
     assert tfa.attention_variant(dtype, head_dim, length, backward) == want

@@ -50,7 +50,7 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol, mask_kind, heads, hea
     lens = torch.tensor([l, 1, l // 3, l - 1], device=cuda)
     mask = torch.zeros(b, l, device=cuda).masked_fill(
         torch.arange(l, device=cuda) >= lens[:, None], MASKS[mask_kind])
-    variant = "wgmma" if dtype == torch.bfloat16 and head_dim == 64 else "simt"
+    variant = _k1_variant(dtype, head_dim)
     assert fa.attention_variant(dtype, head_dim, l) == variant
     cuda_lib.reset_launch_counts()
     out = fa.fused_self_attention(q, k, v, mask, heads)
@@ -60,6 +60,15 @@ def test_attention_kernel_matches_plain(cuda, dtype, atol, mask_kind, heads, hea
     assert out.dtype == dtype and out.shape == q.shape
     want = fa.attention_reference(q, k, v, mask, heads)
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=atol)
+
+
+def _k1_variant(dtype, head_dim):
+    """The K1 kernel a dtype and head width run, both ways: at head width
+    64 bf16 on the tensor cores ("wgmma") and f32 as three TF32 products on
+    them ("tf32x3"); at head width 32 the CUDA-core kernel ("simt")."""
+    if head_dim != 64:
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def _rel_err(got, want):
@@ -110,27 +119,29 @@ def _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol):
         assert (got.float() - w.float()).abs().max().item() <= tol * scale, name
 
 
-# the tensor-core variant's edges: one row, a ragged first tile, whole tiles
-# and one row more (64, 65; 192 is the longest row the one-launch backward
-# holds; past it the forward walks ring passes of 128 keys and the backward
-# streams tiles in two launches: 193, 255, 256 = EF-CapTr's rows, 257, 320,
-# 514 = max_position_embeddings), at 64 x 12 (row, head) pairs: 768
-# one-launch backward blocks, 768 blocks per query or key tile otherwise,
-# several waves over the card's 132 SMs
+# the tensor-core variants' edges: one row, a ragged first tile, whole tiles
+# and one row more (64, 65; 192 is the longest row the bf16 one-launch
+# backward holds; past it the bf16 forward walks ring passes of 128 keys and
+# the backward streams tiles in two launches: 193, 255, 256 = EF-CapTr's
+# rows, 257, 320, 514 = max_position_embeddings; f32 walks 64-key tiles at
+# every length), at 64 x 12 (row, head) pairs: 768 one-launch backward
+# blocks, 768 blocks per query or key tile otherwise, several waves over the
+# card's 132 SMs
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("l", [1, 31, 64, 65, 192, 193, 255, 256, 257, 320, 514])
-def test_attention_tensor_core_kernels_at_tile_edges(cuda, rate, l):
+def test_attention_tensor_core_kernels_at_tile_edges(cuda, dtype, tol, rate, l):
     g = torch.Generator(cuda).manual_seed(2)
     b, heads, seed = 64, 12, 4321
-    q, k, v, gout = (torch.randn(b, l, heads * 64, device=cuda, generator=g).to(torch.bfloat16)
+    q, k, v, gout = (torch.randn(b, l, heads * 64, device=cuda, generator=g).to(dtype)
                      for _ in range(4))
     lens = torch.randint(1, l + 1, (b,), device=cuda, generator=g)
     lens[0] = l
     mask = torch.zeros(b, l, device=cuda).masked_fill(
         torch.arange(l, device=cuda) >= lens[:, None], MASKS["neg10000"])
-    assert fa.attention_variant(q.dtype, 64, l) == "wgmma"
-    assert fa.attention_variant(q.dtype, 64, l, backward=True) == "wgmma"
-    _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, 3e-2)
+    assert fa.attention_variant(q.dtype, 64, l) == _k1_variant(dtype, 64)
+    assert fa.attention_variant(q.dtype, 64, l, backward=True) == _k1_variant(dtype, 64)
+    _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol)
 
 
 # the streaming backward (`_launch_bwd_streamed`) below the one-launch limit
@@ -173,7 +184,7 @@ def test_attention_kernels_at_the_phase1_shapes(cuda, dtype, tol, rate, b, l):
     lens[0] = l
     mask = torch.zeros(b, l, device=cuda).masked_fill(
         torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
-    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    variant = _k1_variant(dtype, 64)
     assert fa.attention_variant(dtype, 64, l) == variant
     assert fa.attention_variant(dtype, 64, l, backward=True) == variant
     _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol)
@@ -311,7 +322,7 @@ def test_registered_ops_launch_the_kernels(cuda, dtype):
     direct = torch.ops.macsa_tpu_torch.fused_self_attention(q, k, v, mask, 12, 0.0, 0)
     direct_box = torch.ops.macsa_tpu_torch.box_attention(bq, bk, bv, gates)
     torch.cuda.synchronize()
-    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    variant = _k1_variant(dtype, 64)
     assert dict(cuda_lib.launch_counts) == {"fused_self_attention": 2,
                                             f"fused_self_attention.{variant}": 2,
                                             "box_attention": 2}
@@ -785,7 +796,7 @@ def test_attention_kernels_at_the_efcap_shape(cuda, dtype, tol, rate):
     lens[0] = l
     mask = torch.zeros(b, l, device=cuda).masked_fill(
         torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
-    variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+    variant = _k1_variant(dtype, 64)
     assert fa.attention_variant(dtype, 64, l) == variant
     assert fa.attention_variant(dtype, 64, l, backward=True) == variant
     _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol)
@@ -853,10 +864,10 @@ def test_baseline_kernel_path_matches_plain(cuda, name, length):
     logits, loss, grads, launches = results[True]
     want_logits, want_loss, want_grads, plain_launches = results[False]
     # 2 layers, in the eval step and the step's forward (TomBERT's 16-row
-    # target stays plain); f32 runs the CUDA-core variants
+    # target stays plain); f32 at head width 64 runs the 3xTF32 variants
     assert plain_launches == {}
-    assert launches == {"fused_self_attention": 4, "fused_self_attention.simt": 4,
-                        "fused_self_attention_bwd": 2, "fused_self_attention_bwd.simt": 2}
+    assert launches == {"fused_self_attention": 4, "fused_self_attention.tf32x3": 4,
+                        "fused_self_attention_bwd": 2, "fused_self_attention_bwd.tf32x3": 2}
     torch.testing.assert_close(logits, want_logits, rtol=0, atol=1e-4)
     assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
     assert set(grads) == set(want_grads)
