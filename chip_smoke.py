@@ -18,8 +18,10 @@ once beside the one-launch kernel at 170 rows; the CUDA-core K1, which no
 path reaches, at head width 32, both dtypes and ways; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
-whole identity bottleneck, at all four stages; in bf16 both must run their
-tensor-core variants), times each beside its plain version, its bound on
+whole identity bottleneck, at all four stages; both must run their
+tensor-core variants, bf16 "wgmma" and f32 "tf32x3" (three TF32 products
+for each f32 product); the CUDA-core K4 and K5 in f32 at one shape each
+that no ResNet width has), times each beside its plain version, its bound on
 the card (bytes moved over the memory rate, or operations over the peak
 rate of their type) and, where one PyTorch call computes the same function,
 that call (`library_ms`: a yardstick only, the port never calls it), then,
@@ -134,6 +136,17 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
     return {"bound_ms": max(by_ops, by_bytes),
             "bound_by": "operations" if by_ops > by_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
+
+
+def kernel_bound(flops: float, nbytes: float, dtype) -> dict:
+    """`bound` of a kernel on the tensor cores: in f32 the operations
+    counted as the kernels take them, three TF32 products for each f32
+    product (`bound_ms`), and beside that as f32 on the CUDA cores
+    (`cuda_cores_bound_ms`); in bf16 as bf16 products."""
+    if dtype == torch.float32:
+        return {**bound(flops, nbytes, "tf32x3"),
+                "cuda_cores_bound_ms": bound(flops, nbytes, torch.float32)["bound_ms"]}
+    return bound(flops, nbytes, dtype)
 
 
 def bound_text(b: dict) -> str:
@@ -350,20 +363,15 @@ def attention_bound(b, l, h, d, dtype, backward: bool) -> dict:
     """Forward: QK^T and PV (4 b h l^2 d operations); q, k, v and the mask
     read, the output written.  Backward: the scores again, dP, dV, dQ, dK
     (10 b h l^2 d); q, k, v, the output's gradient, the mask and the two
-    f32 row terms read, dq, dk, dv written.  In f32 the operations are
-    counted as the kernels take them, three TF32 products for each f32
-    product (`bound_ms`), and beside that as f32 on the CUDA cores
-    (`cuda_cores_bound_ms`)."""
+    f32 row terms read, dq, dk, dv written (`kernel_bound`: f32 as three
+    TF32 products, with the CUDA-core count beside it)."""
     size = torch.finfo(dtype).bits // 8
     tensor = b * l * h * d * size
     if backward:
         flops, moved = 10.0 * b * h * l * l * d, 7 * tensor + b * l * 4 + 2 * b * h * l * 4
     else:
         flops, moved = 4.0 * b * h * l * l * d, 4 * tensor + b * l * 4
-    if dtype == torch.float32:
-        return {**bound(flops, moved, "tf32x3"),
-                "cuda_cores_bound_ms": bound(flops, moved, torch.float32)["bound_ms"]}
-    return bound(flops, moved, dtype)
+    return kernel_bound(flops, moved, dtype)
 
 
 def phase_k1(dev, cuda_lib, fa):
@@ -792,10 +800,10 @@ def phase_k4(dev, cuda_lib, fr):
     3 over 280 images.  No path of the JAX package or of the port calls K4
     (the JAX runner uses K5 only), so this phase drives it: one call per
     case and dtype, with the counts set to 0 just before and read just
-    after (the bf16 cases must have run the tensor-core variant, the f32
-    ones the CUDA-core variant), then the comparisons and the timing,
-    beside a `torch.mm` in the same dtype followed by the epilogue's
-    elementwise passes."""
+    after (the bf16 cases must have run the tensor-core variant "wgmma",
+    the f32 ones "tf32x3", three TF32 products for each f32 product), then
+    the comparisons and the timing, beside a `torch.mm` in the same dtype
+    (f32 with TF32 off) followed by the epilogue's elementwise passes."""
     g = torch.Generator(dev).manual_seed(10)
     hw, c, f = RESNET_STAGES[3]
     m = STAGE3_IMAGES * hw * hw
@@ -818,10 +826,11 @@ def phase_k4(dev, cuda_lib, fr):
     outs = {key: fr.fused_matmul_bn_act(*args) for key, args in calls.items()}
     torch.cuda.synchronize()
     launches = cuda_lib.launch_counts["fused_matmul_bn_act"]
-    variants = {v: cuda_lib.launch_counts[f"fused_matmul_bn_act.{v}"] for v in ("wgmma", "simt")}
-    if variants != {"wgmma": len(cases), "simt": len(cases)}:
+    variants = {v: cuda_lib.launch_counts[f"fused_matmul_bn_act.{v}"]
+                for v in ("wgmma", "tf32x3", "simt")}
+    if variants != {"wgmma": len(cases), "tf32x3": len(cases), "simt": 0}:
         raise AssertionError(f"K4 variants {variants}: the bf16 cases must run on the tensor "
-                             f"cores, the f32 ones on the CUDA cores")
+                             f"cores as wgmma, the f32 ones as tf32x3")
 
     def library(x, w, mul, add, res, relu):
         y = torch.mm(x, w).float() * mul + add
@@ -844,10 +853,12 @@ def phase_k4(dev, cuda_lib, fr):
         # script), then the epilogue's passes
         library_ms = cuda_ms(lambda: library(*args), iters=10)
         x, w, mul, add, res, _ = args
-        bd = bound(2.0 * x.shape[0] * x.shape[1] * w.shape[1],
-                   nbytes(x, w, mul, add, res) + x.shape[0] * w.shape[1] * x.element_size(), dtype)
+        bd = kernel_bound(2.0 * x.shape[0] * x.shape[1] * w.shape[1],
+                          nbytes(x, w, mul, add, res) + x.shape[0] * w.shape[1] * x.element_size(),
+                          dtype)
         report[(name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "library_ms": library_ms, **bd}
+                                 "library_ms": library_ms, "variant": fr.matmul_variant(
+                                     dtype, x.shape[0], w.shape[1], x.shape[1]), **bd}
         print(f"phase k4 {str(dtype)[6:]} {name}: max_abs_err={err:.3g} rel {rel:.3g} "
               f"(tol {tol} of max|ref|) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
               f"{library_ms:.4f} ({str(dtype)[6:]} mm + passes) {bound_text(bd)}")
@@ -868,16 +879,18 @@ def random_bn_(module, g) -> None:
 
 def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
     """K5 against its plain version on one identity bottleneck of each
-    ResNet-152 stage over 280 images in bf16 (the tensor-core variant), and
-    of stage 3 in f32 (the CUDA-core variant); the weights come from a port
+    ResNet-152 stage over 280 images, in f32 (the 3xTF32 tensor-core
+    variant "tf32x3") and bf16 ("wgmma"); the weights come from a port
     `Bottleneck` module (random weights and frozen-BN statistics), whose own
-    forward on cuDNN is the library yardstick."""
+    forward on cuDNN (f32 with TF32 off) is the library yardstick, and
+    against which f32 is held too."""
     n = STAGE3_IMAGES
     # relative to max|ref|.  f32: summation order only.  bf16: the plain
     # version rounds the conv1 and conv3 products to bf16 where the kernel
     # keeps them in f32, and a1, a2 and the output round on both sides
     tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    cases = [(3, torch.float32)] + [(stage, torch.bfloat16) for stage in RESNET_STAGES]
+    cases = [(stage, dtype) for dtype in (torch.float32, torch.bfloat16)
+             for stage in RESNET_STAGES]
     report = {}
     with torch.no_grad():
         for stage, dtype in cases:
@@ -892,7 +905,7 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
             cast = [t.to(dtype) if i in (0, 3, 6) else t for i, t in enumerate(args)]
             cuda_lib.reset_launch_counts()
             got = fr.fused_bottleneck(x2, *args, n, hw, hw)
-            variant = "wgmma" if dtype == torch.bfloat16 else "simt"
+            variant = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
             if dict(cuda_lib.launch_counts) != {"fused_bottleneck": 1,
                                                 f"fused_bottleneck.{variant}": 1}:
                 raise AssertionError(f"K5 stage {stage} {dtype}: launches "
@@ -913,17 +926,62 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
             plain_ms = cuda_ms(lambda: fr.bottleneck_reference(x2, *cast, n, hw, hw), iters=3,
                                warmup=1)
             module_ms = cuda_ms(lambda: block(x4), iters=iters, warmup=1)
-            bd = bound(2.0 * n * hw * hw * (2 * c * f + 9 * f * f),
-                       2 * nbytes(x2) + sum(nbytes(t) for t in cast), dtype)
+            bd = kernel_bound(2.0 * n * hw * hw * (2 * c * f + 9 * f * f),
+                              2 * nbytes(x2) + sum(nbytes(t) for t in cast), dtype)
             report[(stage, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
-                                      "library_ms": module_ms, **bd}
+                                      "library_ms": module_ms, "variant": variant,
+                                      "shape": [n * hw * hw, c, f], **bd}
             print(f"phase k5 {str(dtype)[6:]} stage {stage} [{n * hw * hw},{c}] F={f} n={n} "
                   f"{hw}x{hw} ({variant}): max_abs_err={err:.3g} rel {rel:.3g} (tol {tol} of "
                   f"max|ref|), vs the Bottleneck module rel {module_rel:.3g}; kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={module_ms:.4f} (the module, cuDNN "
-                  f"convs) {bound_text(bd)}")
+                  f"convs{', TF32 off' if dtype == torch.float32 else ''}) {bound_text(bd)}")
             del x2, x4, block, args, cast
             torch.cuda.empty_cache()
+    cuda_lib.reset_launch_counts()
+    return report
+
+
+def phase_k45_simt_f32(dev, cuda_lib, fr) -> dict:
+    """The CUDA-core K4 and K5 ("simt", `csrc/fused_resnet.cu`) in f32,
+    which no ResNet width reaches since f32 went to the tensor cores, held
+    against their plain versions at one shape each outside "tf32x3" (K4
+    [777, 100] -> 130 with a residual and ReLU; K5 over 3 images of 8 x 8,
+    C 32, F 8) with the f32 tolerances of phases k4 and k5, so that no
+    kernel the library builds goes unchecked; each timed beside its plain
+    version.  -> {"k4": report, "k5": report}."""
+    g = torch.Generator(dev).manual_seed(38)
+    m, k, n = 777, 100, 130
+    x = torch.randn(m, k, device=dev, generator=g)
+    w = torch.randn(k, n, device=dev, generator=g) / math.sqrt(k)
+    k4_args = (x, w, *bn_affine(g, n, dev), torch.randn(m, n, device=dev, generator=g), True)
+    images, hw, c, f = 3, 8, 32, 8
+    x2 = torch.relu(torch.randn(images * hw * hw, c, device=dev, generator=g))
+    w1, w2, w3 = (torch.randn(*shape, device=dev, generator=g) / math.sqrt(fan_in)
+                  for shape, fan_in in (((c, f), c), ((9, f, f), 9 * f), ((f, c), f)))
+    k5_args = (x2, w1, *bn_affine(g, f, dev), w2, *bn_affine(g, f, dev), w3,
+               *bn_affine(g, c, dev), images, hw, hw)
+    cases = {"k4": ("fused_matmul_bn_act", fr.fused_matmul_bn_act,
+                    fr.fused_matmul_bn_act_reference, k4_args, 1e-5, [m, k, n]),
+             "k5": ("fused_bottleneck", fr.fused_bottleneck, fr.bottleneck_reference, k5_args,
+                    1e-4, [images * hw * hw, c, f])}
+    report = {}
+    for key, (name, kernel, plain, args, tol, shape) in cases.items():
+        cuda_lib.reset_launch_counts()
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        expect_counts(cuda_lib, {name: 1, f"{name}.simt": 1}, f"{name} f32 {shape}")
+        want = plain(*args)
+        err, rel = (got - want).abs().max().item(), rel_err(got, want)
+        if not rel <= tol:
+            raise AssertionError(f"{name} simt f32 {shape}: error {rel} of max|ref| > {tol}")
+        ms = cuda_ms(lambda: kernel(*args), iters=20)
+        plain_ms = cuda_ms(lambda: plain(*args), iters=20)
+        report[key] = {"shape": shape, "variant": "simt",
+                       "source": "macsa_tpu_torch/csrc/fused_resnet.cu", "max_abs_err": err,
+                       "ms": ms, "plain_ms": plain_ms}
+        print(f"phase k45_simt_f32 {name} (on no ResNet width) f32 {shape}: max_abs_err={err:.3g} "
+              f"rel {rel:.3g} (tol {tol} of max|ref|) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
     cuda_lib.reset_launch_counts()
     return report
 
@@ -1087,10 +1145,11 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     launches = dict(cuda_lib.launch_counts)
     forwards = 2 * (ITERS + 1)
     identity_blocks = visual32.config.stage_sizes[2] - 1
-    # half the forwards are bf16 (K5 on the tensor cores), half f32 (CUDA cores)
+    # half the forwards are bf16 (K5 "wgmma"), half f32 (K5 "tf32x3"): all
+    # on the tensor cores
     want = {"fused_bottleneck": identity_blocks * forwards,
             "fused_bottleneck.wgmma": identity_blocks * forwards // 2,
-            "fused_bottleneck.simt": identity_blocks * forwards // 2,
+            "fused_bottleneck.tf32x3": identity_blocks * forwards // 2,
             "box_attention": forwards,
             "fused_self_attention": cfg.text.num_hidden_layers * forwards,
             "fused_self_attention.wgmma": cfg.text.num_hidden_layers * forwards // 2,
@@ -1165,8 +1224,8 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
               f"(stage 3 through K5) {fused_ms:.2f} ms/pass, plain {plain_ms:.2f} ms/pass on "
               f"{card}")
     print(f"phase fused launches over {forwards} forwards: {launches} ({identity_blocks} K5 "
-          f"and {cfg.text.num_hidden_layers} K1 (K5 on the CUDA cores in f32; K1 tf32x3 in "
-          f"f32; both wgmma in bf16), 1 K3, 2 K2 per forward)")
+          f"and {cfg.text.num_hidden_layers} K1 (both tf32x3 in f32, wgmma in bf16), 1 K3, 2 "
+          f"K2 per forward)")
     return launches, times
 
 
@@ -3307,6 +3366,7 @@ def main() -> int:
     k3 = run(phase_k3, dev, ba, cuda_lib)
     k4, k4_launches = run(phase_k4, dev, cuda_lib, fr)
     k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
+    k45_simt = run(phase_k45_simt_f32, dev, cuda_lib, fr)
     launches = run(phase_slice, dev, smi, cuda_lib, *model_mods)
     fused_launches, _ = run(phase_fused, dev, smi, cuda_lib, *model_mods, fused_backbone)
     train_launches = run(phase_train, dev, smi, cuda_lib, *model_mods, optim, train_state, fa)
@@ -3424,10 +3484,11 @@ def main() -> int:
               max(r["err"] for r in k3.values()), k3[bf16]),
         entry("fused_matmul_bn_act", "fused_resnet_wgmma.cu",
               "tools_dev/fused_resnet_experiment.py:82", k4_launches,
-              max(r["err"] for r in k4.values()), k4_conv1),
+              max([r["err"] for r in k4.values()] + [k45_simt["k4"]["max_abs_err"]]), k4_conv1),
         entry("fused_bottleneck", "fused_resnet_wgmma.cu",
               "tools_dev/fused_resnet_experiment.py:208", fused_launches["fused_bottleneck"],
-              max(r["err"] for r in k5.values()), k5[(3, bf16)]),
+              max([r["err"] for r in k5.values()] + [k45_simt["k5"]["max_abs_err"]]),
+              k5[(3, bf16)]),
     ]
     f32_170 = (k1[("-10000", torch.float32)], k1_bwd[("-10000", torch.float32, 0.0)])
     for kernel, which, f32_report in zip(kernels[:2], ("fwd", "bwd"), f32_170):
@@ -3438,6 +3499,23 @@ def main() -> int:
                          "at_256_rows": at_shape(which, k1_baselines, 256, 768, torch.float32),
                          "at_mp2_rank": at_shape(which, k1_tp, 170, 384, torch.float32)}
         kernel["head_width_32"] = head_width_32(which)
+
+    def resnet_cases(report: dict, dtype, label) -> list:
+        """Phase k4's or k5's cases in one dtype: times, bounds (f32: also
+        on the CUDA cores), the library call."""
+        keys = ("variant", "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "cuda_cores_bound_ms", "library_ms", "err")
+        return [{"case": label(key), **{k: r[k] for k in keys if k in r}}
+                for key, r in report.items() if key[1] == dtype]
+    for kernel, report, label, simt in (
+            (kernels[4], k4, lambda key: key[0], k45_simt["k4"]),
+            (kernels[5], k5, lambda key: f"stage {key[0]}", k45_simt["k5"])):
+        kernel["variants"] = {
+            "wgmma": {"source": "macsa_tpu_torch/csrc/fused_resnet_wgmma.cu",
+                      "cases": resnet_cases(report, bf16, label)},
+            "tf32x3": {"source": "macsa_tpu_torch/csrc/fused_resnet_tf32.cu",
+                       "cases": resnet_cases(report, torch.float32, label)},
+            "simt": simt}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

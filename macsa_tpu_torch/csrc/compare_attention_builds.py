@@ -12,8 +12,10 @@ EF-CapTrRoBERTa's [48, 256, 768], 12 heads, rate 0 and 0.1: bf16 through
 the "wgmma" entry points of both, and f32 through the entry point each tree
 routes it to (`macsa_fused_attention_{fwd,bwd}_tf32x3` where the library
 has them, else the CUDA-core `macsa_fused_attention_{fwd,bwd}` at head width
-64).  Times only; `chip_smoke.py` checks the numbers.  Needs an H100 and
-`nvcc`.
+64).  Before timing, each case's outputs of the two trees are compared
+bit for bit (forward: out, lse; backward: dq, dk, dv); it exits 1 if they
+differ, as they may where a tree changed K1's arithmetic.  `chip_smoke.py`
+checks the numbers against the plain versions.  Needs an H100 and `nvcc`.
 """
 
 import ctypes
@@ -93,6 +95,7 @@ def main(argv: list) -> int:
     stream = cuda_lib.stream_handle(dev)
     g = torch.Generator(dev).manual_seed(0)
     b, h = 48, 12
+    differ = 0
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"other": build(Path(argv[0]).resolve(), Path(tmp) / "other.so"),
                 "this": build(cuda_lib.CSRC, Path(tmp) / "this.so")}
@@ -106,9 +109,16 @@ def main(argv: list) -> int:
                     t.update({n: torch.empty(b, h, l, device=dev) for n in ("lse", "row_term")})
                     runs = {name: launchers(lib, dtype, b, l, h, t, rate_args, stream)
                             for name, lib in libs.items()}
-                    for _, fwd, _ in runs.values():
+                    outputs = {}
+                    for name, (_, fwd, bwd) in runs.items():
                         fwd()  # the backward reads the forward's lse
-                    torch.cuda.synchronize()
+                        bwd()
+                        outputs[name] = [t[n].clone() for n in ("out", "lse", "dq", "dk", "dv")]
+                    same = all(torch.equal(x, y) for x, y in zip(*outputs.values()))
+                    differ += not same
+                    print(f"[{b},{l},{h * 64}] {str(dtype)[6:]} rate {rate}: out, lse, dq, dk, "
+                          f"dv of the two trees {'bitwise equal' if same else 'DIFFER'}",
+                          flush=True)
                     for which in (1, 2):
                         times = [(name, event_ms(runs[name][which]))
                                  for name in ("other", "this", "this", "other")]
@@ -116,7 +126,7 @@ def main(argv: list) -> int:
                               f"{'forward' if which == 1 else 'backward'}, in turns: "
                               + ", ".join(f"{name} ({runs[name][0]}) {ms:.4f}"
                                           for name, ms in times), flush=True)
-    return 0
+    return 1 if differ else 0
 
 
 if __name__ == "__main__":

@@ -13,12 +13,12 @@
 // takes it (not rowsum(g * out)), and no atomics, so two calls give the
 // same bits.
 //
-// Three TF32 products for one f32 product.  Every f32 operand x of a
-// product is split in registers into big = tf32(x) and small =
-// tf32(x - big), both rounded to nearest, ties away (`tf32`), and the
-// product is small*big + big*small + big*big, each term an
-// `mma.sync.m16n8k8` TF32 product accumulated in f32 (small*small, about
-// 2^-22 of the product, is left out).  One TF32 product keeps 11 bits of
+// Three TF32 products for one f32 product (`tf32x3.cuh`, shared with the
+// f32 K4 and K5).  Every f32 operand x of a product is split in registers
+// into big = tf32(x) and small = tf32(x - big), both rounded to nearest,
+// ties away (`tf32`), and the product is small*big + big*small + big*big,
+// each term an `mma.sync.m16n8k8` TF32 product accumulated in f32
+// (small*small, about 2^-22 of the product, is left out).  One TF32 product keeps 11 bits of
 // each operand and misses the f32 tolerance of the output (1e-5 absolute)
 // by two orders of magnitude; three keep about 22 and hold it.  There is no
 // one-product mode.  Exponentials, the mask, the scale and the row terms
@@ -83,11 +83,17 @@
 
 #include "attention_dropout.cuh"
 #include "hopper_tiles.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
 using attention::Dropout;
 using attention::row_key;
+using tf32x3::FragA;
+using tf32x3::mma_tf32;
+using tf32x3::Split;
+using tf32x3::split;
+using tf32x3::split_a;
 
 constexpr int kD = 64;                     // head width
 constexpr int kTile = 64;                  // rows a block owns, and rows of a walked tile
@@ -110,54 +116,6 @@ constexpr int kFwdSmem = 2 * kFwdStage * 4;
 constexpr int kDqSmem = (2 * kTileFloats + 2 * kFwdStage) * 4;
 constexpr int kDkdvStage = 2 * kTileFloats + 3 * kTile;
 constexpr int kDkdvSmem = (2 * kTileFloats + 2 * kDkdvStage) * 4;
-
-// ---------------------------------------------------------------------------
-// three TF32 products
-// ---------------------------------------------------------------------------
-
-// x rounded to the nearest TF32 value, ties away from zero: the rounding of
-// `cvt.rna.tf32.f32`, the same bits for every finite x, taken with an integer
-// add and mask, which the card issues at full rate where the conversion runs
-// at a fraction of it (`ablate_attention.py tf32x3`: the backward at
-// [48, 170, 768] takes 0.64 ms so, 0.80 with the conversion)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-struct Split {
-  uint32_t big, small;  // x = big + small to about 2^-22 of x
-};
-
-__device__ __forceinline__ Split split(float x) {
-  const uint32_t big = tf32(x);
-  return {big, tf32(x - __uint_as_float(big))};
-}
-
-// an A fragment, split
-struct FragA {
-  uint32_t big[4], small[4];
-};
-
-__device__ __forceinline__ FragA split_a(float a0, float a1, float a2, float a3) {
-  const float a[4] = {a0, a1, a2, a3};
-  FragA f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const Split s = split(a[e]);
-    f.big[e] = s.big;
-    f.small[e] = s.small;
-  }
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // c[n] += a b[n] in f32 for the 8 output slices of one k step: the two small
 // terms first, the big one last, each term over all 8 slices before the

@@ -1,9 +1,10 @@
 // A 1x1 convolution with its frozen-BatchNorm epilogue (kernel K4) and a
 // whole stride-1 identity ResNet bottleneck (kernel K5) for Hopper (sm_90a):
-// the CUDA-core variants, which take f32 and bf16 at any shape.  bf16 at
-// the ResNet's widths goes to the tensor-core variants of
-// `fused_resnet_wgmma.cu` instead (`ops/fused_resnet.py` picks by dtype and
-// shape); f32 stays here, because a TF32 product would not be f32.
+// the CUDA-core variants, which take f32 and bf16 at any shape.  At the
+// ResNet's widths both dtypes go to the tensor-core variants instead, bf16
+// to `fused_resnet_wgmma.cu` and f32 to `fused_resnet_tf32.cu` (three TF32
+// products for each f32 product); `ops/fused_resnet.py` picks by dtype and
+// shape.
 //
 // Replaces: tools_dev/fused_resnet_experiment.py,
 //   K4: `_kernel` via `_call` in the custom VJP `fused_matmul_bn_act`:

@@ -75,6 +75,9 @@ _SIGNATURES = {
     "macsa_matmul_bn_act_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out, n, h, w, c, f, tile_rows, stream
     "macsa_fused_bottleneck_wgmma": [_P] * 11 + [_I] * 6 + [_P],
+    # the f32 tensor-core variants (csrc/fused_resnet_tf32.cu): the same arguments
+    "macsa_matmul_bn_act_tf32x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "macsa_fused_bottleneck_tf32x3": [_P] * 11 + [_I] * 6 + [_P],
 }
 
 

@@ -11,12 +11,15 @@ w2 [9, F, F] (the 3x3 taps in dy*3+dx order) and w3 [F, C] for K5.  Each
 
 On a CUDA tensor the wrappers launch the hand-written kernels, K5 as one
 launch per bottleneck with its intermediates kept on chip.  Each kernel
-has two variants, picked by `matmul_variant` / `bottleneck_variant` from
+has three variants, picked by `matmul_variant` / `bottleneck_variant` from
 the dtype and the shape alone: "wgmma"
 (`macsa_tpu_torch/csrc/fused_resnet_wgmma.cu`: bf16 products on the
-tensor cores, operands through an asynchronous ring in shared memory)
-and "simt" (`macsa_tpu_torch/csrc/fused_resnet.cu`: f32 sums on the CUDA
-cores, any shape, f32 or bf16).  `cuda_lib.launch_counts` counts each
+tensor cores, operands through an asynchronous ring in shared memory),
+"tf32x3" (`macsa_tpu_torch/csrc/fused_resnet_tf32.cu`: f32 at the same
+shapes on the tensor cores, every f32 product as three TF32 `mma.sync`
+products of operands split in registers) and "simt"
+(`macsa_tpu_torch/csrc/fused_resnet.cu`: f32 sums on the CUDA cores, any
+other shape, f32 or bf16).  `cuda_lib.launch_counts` counts each
 launch under the kernel's name and under "<name>.<variant>".  Under autograd K4's
 gradient is `fused_matmul_bn_act_backward_reference` (the JAX `_bwd`) and
 K5's is PyTorch autograd through `bottleneck_reference` (the JAX `_bneck_bwd`
@@ -128,12 +131,19 @@ _WGMMA_X_RING = 4 * 128 * 64 * 2       # conv1's ring of x tiles, in a2's space
 _WGMMA_OUT_STAGE = 128 * (128 + 8) * 4  # conv3's f32 output staging tile, in a1's space
 
 
+# f32 tensor-core K5 ("tf32x3", csrc/fused_resnet_tf32.cu): its two ring
+# stages (a 112 x (16 + 4) x chunk and a 16 x (256 + 8) weight chunk each)
+# and conv3's per-warp output staging tiles (8 warps x 32 x (32 + 8)), in floats
+_TF32X3_RING = 2 * (112 * 20 + 16 * 264)
+_TF32X3_STAGING = 8 * 32 * 40
+
+
 def matmul_variant(dtype: torch.dtype, m: int, n: int, k: int) -> str:
-    """Which K4 kernel takes x2 [m, k] @ w [k, n] on a CUDA tensor: "wgmma"
-    for bf16 with k and n multiples of 64 (any m), else "simt"."""
-    if dtype == torch.bfloat16 and m >= 1 and n >= 64 and k >= 64 and n % 64 == 0 \
-            and k % 64 == 0:
-        return "wgmma"
+    """Which K4 kernel takes x2 [m, k] @ w [k, n] on a CUDA tensor: for k and
+    n multiples of 64 (any m) "wgmma" in bf16 and "tf32x3" in f32, else
+    "simt"."""
+    if m >= 1 and n >= 64 and k >= 64 and n % 64 == 0 and k % 64 == 0:
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return "simt"
 
 
@@ -149,13 +159,11 @@ def wgmma_bottleneck_smem(tile_rows: int, w: int, f: int) -> int:
     return _WGMMA_RING + a2 + a1
 
 
-@functools.lru_cache(maxsize=None)
-def wgmma_tile_rows(h: int, w: int, f: int, limit: int = SMEM_PER_BLOCK) -> int:
-    """Output image rows per block of the tensor-core K5: the most that fit
-    in `limit` bytes of shared memory, evened over the image's h rows
-    (h = 14: 9 fit, two tiles, so 7 each).  0 if not even one row fits."""
+def _evened_tile_rows(h: int, w: int, f: int, smem, limit: int) -> int:
+    """The most output image rows whose `smem(rows, w, f)` is within
+    `limit`, evened over the image's h rows; 0 if not even one fits."""
     most = 0
-    while most < h and wgmma_bottleneck_smem(most + 1, w, f) <= limit:
+    while most < h and smem(most + 1, w, f) <= limit:
         most += 1
     if most == 0:
         return 0
@@ -163,14 +171,42 @@ def wgmma_tile_rows(h: int, w: int, f: int, limit: int = SMEM_PER_BLOCK) -> int:
     return -(-h // tiles)
 
 
+@functools.lru_cache(maxsize=None)
+def wgmma_tile_rows(h: int, w: int, f: int, limit: int = SMEM_PER_BLOCK) -> int:
+    """Output image rows per block of the tensor-core K5: the most that fit
+    in `limit` bytes of shared memory, evened over the image's h rows
+    (h = 14: 9 fit, two tiles, so 7 each).  0 if not even one row fits."""
+    return _evened_tile_rows(h, w, f, wgmma_bottleneck_smem, limit)
+
+
+def tf32x3_bottleneck_smem(tile_rows: int, w: int, f: int) -> int:
+    """Bytes of shared memory of one block of the f32 tensor-core K5 with
+    `tile_rows` output image rows: the ring, a1 [(tile_rows + 2) * w + 1,
+    F + 4] (its last pixel row zero; no smaller than conv3's staging tiles,
+    which share its space) and a2 [tile_rows * w, F + 4], in f32."""
+    a1 = max(((tile_rows + 2) * w + 1) * (f + 4), _TF32X3_STAGING)
+    return (_TF32X3_RING + a1 + tile_rows * w * (f + 4)) * 4
+
+
+@functools.lru_cache(maxsize=None)
+def tf32x3_tile_rows(h: int, w: int, f: int, limit: int = SMEM_PER_BLOCK) -> int:
+    """Output image rows per block of the f32 tensor-core K5: the most that
+    fit in `limit` bytes of shared memory, evened over the image's h rows
+    (h = 14, F = 256: 5 fit, three tiles of 5, 5, 4).  0 if none fits."""
+    return _evened_tile_rows(h, w, f, tf32x3_bottleneck_smem, limit)
+
+
 def bottleneck_variant(dtype: torch.dtype, h: int, w: int, c: int, f: int) -> str:
     """Which K5 kernel takes an [n*h*w, c] block of width f on a CUDA
-    tensor: "wgmma" for bf16 with f one of 64, 128, 256, 512 (the ResNet
-    widths), c a multiple of 128 and an image row narrow enough for one
-    output row's a1 and a2 to fit in shared memory; else "simt"."""
-    if dtype == torch.bfloat16 and f in WGMMA_F and c >= 128 and c % 128 == 0 \
-            and wgmma_tile_rows(h, w, f) > 0:
-        return "wgmma"
+    tensor: with f one of 64, 128, 256, 512 (the ResNet widths) and c a
+    multiple of 128, "wgmma" in bf16 and "tf32x3" in f32 where an image row
+    is narrow enough for one output row's a1 and a2 to fit in shared
+    memory; else "simt"."""
+    if f in WGMMA_F and c >= 128 and c % 128 == 0:
+        if dtype == torch.bfloat16 and wgmma_tile_rows(h, w, f) > 0:
+            return "wgmma"
+        if dtype == torch.float32 and tf32x3_tile_rows(h, w, f) > 0:
+            return "tf32x3"
     return "simt"
 
 
@@ -199,11 +235,11 @@ def _launch_k4(x2, w, mul, add, residual, relu) -> torch.Tensor:
     pointers = (x2.data_ptr(), w.data_ptr(), mul.data_ptr(), add.data_ptr(),
                 None if residual is None else residual.data_ptr(), out.data_ptr())
     stream = cuda_lib.stream_handle(x2.device)
-    if variant == "wgmma":
+    if variant in ("wgmma", "tf32x3"):
         _check_aligned([("x2", x2), ("w", w)]
                        + ([] if residual is None else [("residual", residual)]))
-        status = cuda_lib.library().macsa_matmul_bn_act_wgmma(*pointers, m, n, k, int(relu),
-                                                              stream)
+        entry = getattr(cuda_lib.library(), f"macsa_matmul_bn_act_{variant}")
+        status = entry(*pointers, m, n, k, int(relu), stream)
     else:
         status = cuda_lib.library().macsa_matmul_bn_act(
             *pointers, m, n, k, int(relu), int(x2.dtype == torch.bfloat16), stream)
@@ -240,8 +276,9 @@ def fused_matmul_bn_act(x2: torch.Tensor, w: torch.Tensor, mul: torch.Tensor,
     mul/add [N] f32; residual [M, N] in x2's dtype or None.  Returns
     [M, N] in x2's dtype, with an f32 product and epilogue.  On a CUDA
     tensor the kernel is the one `matmul_variant(dtype, M, N, K)` names:
-    bf16 with K and N multiples of 64 runs on the tensor cores, anything
-    else on the CUDA cores; nothing is tried and retried."""
+    K and N multiples of 64 run on the tensor cores (f32 as three TF32
+    products), anything else on the CUDA cores; nothing is tried and
+    retried."""
     if x2.device.type == "cpu":
         return fused_matmul_bn_act_reference(x2, w, mul, add, residual, relu)
     if x2.device.type != "cuda":
@@ -269,10 +306,11 @@ def _launch_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w) -> t
     variant = bottleneck_variant(x2.dtype, h, w, c, f)
     pointers = [t.data_ptr() for t in (x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out)]
     stream = cuda_lib.stream_handle(x2.device)
-    if variant == "wgmma":
+    if variant in ("wgmma", "tf32x3"):
         _check_aligned([("x2", x2), ("w1", w1), ("w2", w2), ("w3", w3)])
-        status = cuda_lib.library().macsa_fused_bottleneck_wgmma(
-            *pointers, n, h, w, c, f, wgmma_tile_rows(h, w, f), stream)
+        tile_rows = (wgmma_tile_rows if variant == "wgmma" else tf32x3_tile_rows)(h, w, f)
+        entry = getattr(cuda_lib.library(), f"macsa_fused_bottleneck_{variant}")
+        status = entry(*pointers, n, h, w, c, f, tile_rows, stream)
     else:
         status = cuda_lib.library().macsa_fused_bottleneck(
             *pointers, n, h, w, c, f, int(x2.dtype == torch.bfloat16), stream)
@@ -314,9 +352,10 @@ def fused_bottleneck(x2: torch.Tensor, w1: torch.Tensor, mul1: torch.Tensor,
     x2 [n*h*w, C]; w1 [C, F], w2 [9, F, F], w3 [F, C], cast to x2's dtype
     here (differentiably, as `_bneck_fwd` casts them); mul*/add* the f32 BN
     affines.  Returns [n*h*w, C] in x2's dtype.  On a CUDA tensor the
-    kernel is the one `bottleneck_variant(dtype, h, w, C, F)` names: bf16
-    with F in 64/128/256/512 and C a multiple of 128 (every ResNet stage)
-    runs on the tensor cores, anything else on the CUDA cores."""
+    kernel is the one `bottleneck_variant(dtype, h, w, C, F)` names: F in
+    64/128/256/512 and C a multiple of 128 (every ResNet stage) run on the
+    tensor cores (f32 as three TF32 products), anything else on the CUDA
+    cores."""
     dt = x2.dtype
     weights = (w1.to(dt).contiguous(), w2.to(dt).contiguous(), w3.to(dt).contiguous())
     affines = tuple(t.float().contiguous() for t in (mul1, add1, mul2, add2, mul3, add3))

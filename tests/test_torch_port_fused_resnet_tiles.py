@@ -1,6 +1,8 @@
 """The tensor-core K4/K5's arithmetic outside the kernels: which variant a
-shape gets, how many image rows a K5 block takes, and a plain PyTorch
-emulation of the K5 block's index arithmetic.
+shape gets (bf16 "wgmma", f32 "tf32x3" at the same shapes, else "simt"), how
+many image rows a bf16 K5 block takes, and a plain PyTorch emulation of the
+bf16 K5 block's index arithmetic (the f32 one's is in
+`test_torch_port_fused_resnet_tf32.py`).
 
 The emulation follows `csrc/fused_resnet_wgmma.cu` step by step: row tiles
 with a one-row halo, a1 at the padded width WP = w + 1 (one zero column
@@ -117,12 +119,18 @@ def test_wgmma_tile_rows_none_fits():
 
 @pytest.mark.parametrize("dtype,h,w,c,f,want", [
     *[(BF16, hw, hw, c, f, "wgmma") for hw, c, f in STAGES],
-    *[(F32, hw, hw, c, f, "simt") for hw, c, f in STAGES],
+    *[(F32, hw, hw, c, f, "tf32x3") for hw, c, f in STAGES],
     (BF16, 8, 8, 32, 8, "simt"),      # F below 64
     (BF16, 6, 10, 64, 16, "simt"),    # F a multiple of 16 but not a built width
     (BF16, 6, 10, 256, 64, "wgmma"),  # h != w at a built width
     (BF16, 14, 14, 768, 192, "simt"),  # F a multiple of 64 but not a built width
     (BF16, 14, 14, 192, 64, "simt"),  # C not a multiple of 128
+    (F32, 8, 8, 32, 8, "simt"),       # the same shapes in f32
+    (F32, 6, 10, 64, 16, "simt"),
+    (F32, 6, 10, 256, 64, "tf32x3"),
+    (F32, 14, 14, 768, 192, "simt"),
+    (F32, 14, 14, 192, 64, "simt"),
+    (F32, 8, 4000, 256, 64, "simt"),  # no output row's a1 and a2 fit in shared memory
 ])
 def test_bottleneck_variant(dtype, h, w, c, f, want):
     assert tfr.bottleneck_variant(dtype, h, w, c, f) == want
@@ -133,7 +141,11 @@ def test_bottleneck_variant(dtype, h, w, c, f, want):
     (BF16, 1037, 256, 64, "wgmma"), (BF16, 130, 64, 512, "wgmma"), (BF16, 1, 64, 64, "wgmma"),
     (BF16, 777, 100, 130, "simt"), (BF16, 1, 24, 40, "simt"), (BF16, 300, 64, 96, "simt"),
     (BF16, 300, 48, 64, "simt"),
-    (F32, 54880, 1024, 256, "simt"), (F32, 300, 64, 256, "simt"),
+    (F32, 54880, 1024, 256, "tf32x3"), (F32, 300, 64, 256, "tf32x3"),
+    (F32, 1037, 256, 64, "tf32x3"), (F32, 1, 64, 64, "tf32x3"),
+    (F32, 777, 100, 130, "simt"),   # K not a multiple of 64
+    (F32, 300, 64, 96, "simt"),     # N not a multiple of 64
+    (F32, 300, 48, 64, "simt"),
 ])
 def test_matmul_variant(dtype, m, k, n, want):
     assert tfr.matmul_variant(dtype, m, n, k) == want

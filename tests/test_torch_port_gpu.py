@@ -644,17 +644,22 @@ def _bn_affine(g, channels, device):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 24, 40), (300, 64, 256), (1037, 256, 64),
-                                   (777, 100, 130), (54880, 1024, 256), (130, 64, 512)])
+                                   (777, 100, 130), (54880, 1024, 256), (130, 64, 512),
+                                   (1037, 128, 256), (1037, 64, 1024), (113, 192, 192)])
 @pytest.mark.parametrize("has_res,relu", [(True, True), (False, True), (True, False)])
 def test_matmul_bn_act_kernel_matches_plain(cuda, dtype, m, k, n, has_res, relu):
-    """Ragged M throughout; bf16 with K and N multiples of 64 must run the
-    tensor-core variant, everything else the CUDA-core one."""
+    """Ragged M throughout (1037 rows: 9 tiles of 112 and 29 rows, or 8 of
+    128 and 13); K and N multiples of 64 must run the tensor-core variant,
+    bf16 "wgmma" and f32 "tf32x3" (N a multiple of 256: 112 x 256 tiles;
+    else 128 x 64), everything else the CUDA-core one."""
     g = torch.Generator(cuda).manual_seed(4)
     x2 = torch.randn(m, k, device=cuda, generator=g).to(dtype)
     w = (torch.randn(k, n, device=cuda, generator=g) / k ** 0.5).to(dtype)
     mul, add = _bn_affine(g, n, cuda)
     res = torch.randn(m, n, device=cuda, generator=g).to(dtype) if has_res else None
-    variant = "wgmma" if dtype == torch.bfloat16 and k % 64 == 0 and n % 64 == 0 else "simt"
+    variant = "simt"
+    if k % 64 == 0 and n % 64 == 0:
+        variant = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert fr.matmul_variant(dtype, m, n, k) == variant
     cuda_lib.reset_launch_counts()
     out = fr.fused_matmul_bn_act(x2, w, mul, add, res, relu)
@@ -675,20 +680,24 @@ def _bottleneck_args(g, n, h, w, c, f, dtype, device):
             *_bn_affine(g, c, device))
 
 
-# (n, h, w, C, F): the identity blocks of ResNet-152's four stages (in bf16
-# on the tensor cores), tiny ones, one image, h != w at a width the
-# tensor-core kernel is built for (64) and at one it is not (16), and an
-# image whose rows leave a ragged last tile (20 rows in tiles of 7)
+# (n, h, w, C, F): the identity blocks of ResNet-152's four stages (on the
+# tensor cores), tiny ones, one image, h != w at a width the tensor-core
+# kernels are built for (64) and at one they are not (16), and images whose
+# rows leave a ragged last tile (20 rows in bf16's tiles of 7; in f32's
+# tiles 13 rows as 5, 5, 3, 17 as 5, 5, 5, 2, 9 as 5, 4)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,h,w,c,f", [(3, 56, 56, 256, 64), (3, 28, 28, 512, 128),
                                        (3, 14, 14, 1024, 256), (3, 7, 7, 2048, 512),
                                        (3, 8, 8, 32, 8), (3, 6, 10, 32, 8),
                                        (1, 6, 10, 64, 16), (1, 6, 10, 256, 64),
-                                       (2, 20, 14, 1024, 256)])
+                                       (2, 20, 14, 1024, 256), (2, 13, 14, 1024, 256),
+                                       (1, 17, 28, 512, 128), (2, 9, 7, 2048, 512)])
 def test_bottleneck_kernel_matches_plain(cuda, dtype, n, h, w, c, f):
     g = torch.Generator(cuda).manual_seed(5)
     args = _bottleneck_args(g, n, h, w, c, f, dtype, cuda)
-    variant = "wgmma" if dtype == torch.bfloat16 and f >= 64 else "simt"
+    variant = "simt"
+    if f >= 64:
+        variant = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert fr.bottleneck_variant(dtype, h, w, c, f) == variant
     cuda_lib.reset_launch_counts()
     out = fr.fused_bottleneck(*args, n, h, w)
@@ -769,11 +778,9 @@ def test_fused_backbone_on_gpu_matches_plain(cuda):
             feats[name] = fused_backbone.extract_features(module, x, rois, stages=(1, 2, 3, 4))
             torch.cuda.synchronize()
             # 8 filters: only stage 4 (F = 64, C = 256) has a width the
-            # tensor-core kernel is built for, and it takes bf16 alone
-            want = {"fused_bottleneck": 5, "fused_bottleneck.simt": 5}
-            if name == "bf16":
-                want = {"fused_bottleneck": 5, "fused_bottleneck.simt": 4,
-                        "fused_bottleneck.wgmma": 1}
+            # tensor-core kernels are built for
+            want = {"fused_bottleneck": 5, "fused_bottleneck.simt": 4,
+                    "fused_bottleneck.wgmma" if name == "bf16" else "fused_bottleneck.tf32x3": 1}
             assert dict(cuda_lib.launch_counts) == want
             feats["plain_" + name] = (module.grid_features(x), module.pooled_features(rois))
     for i in range(2):  # grid, roi
