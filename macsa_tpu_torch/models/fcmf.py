@@ -34,6 +34,7 @@ from macsa_tpu_torch.models import layers
 from macsa_tpu_torch.models.box_attention import BoxMultiHeadedAttention
 from macsa_tpu_torch.models.mde import MultimodalDenoisingEncoder
 from macsa_tpu_torch.models.text_encoder import TextEncoder
+from macsa_tpu_torch.utils.logging import span
 
 
 def _fold(x: torch.Tensor) -> torch.Tensor:
@@ -95,43 +96,45 @@ class FCMFEncoder(nn.Module):
         b, num_imgs = visual_embeds_att.shape[:2]
 
         # 1. text encoding
-        sequence_output, _ = self.bert(input_ids, token_type_ids, attention_mask, rng)
-        seq_len = sequence_output.shape[1]
-        if added_attention_mask is None:
-            added_attention_mask = torch.ones(b, seq_len + cfg.num_patches,
-                                              dtype=torch.int32, device=input_ids.device)
-        text_rep = sequence_output.repeat_interleave(num_imgs, dim=0)  # [B*I, L, H]
+        with span("text_encoder"):
+            sequence_output, _ = self.bert(input_ids, token_type_ids, attention_mask, rng)
+        with span("fusion"):
+            seq_len = sequence_output.shape[1]
+            if added_attention_mask is None:
+                added_attention_mask = torch.ones(b, seq_len + cfg.num_patches,
+                                                  dtype=torch.int32, device=input_ids.device)
+            text_rep = sequence_output.repeat_interleave(num_imgs, dim=0)  # [B*I, L, H]
 
-        # A. image-guided cross attention, CLS query only (fcmf_pretraining.py:48-93)
-        converted_img = self.vismap2text(_fold(visual_embeds_att).to(dt))  # [B*I, 49, H]
-        if self.mde is not None:
-            # K = int(49 * alpha) strong patches, all valid (fcmf_pretraining.py:272-287)
-            converted_img = self.mde(text_rep, converted_img)
-            img_mask = torch.ones(converted_img.shape[:2], dtype=torch.int32,
-                                  device=converted_img.device)
-        else:
-            img_mask = added_attention_mask[:, :cfg.num_patches].repeat_interleave(num_imgs, 0)
-        ext_img_mask = layers.extend_attention_mask(img_mask, dtype=dt)
-        text2img = self.text2img_attention(text_rep[:, :1], converted_img, ext_img_mask, rng)
-        all_h = self.text2img_pooler(text2img).reshape(b, num_imgs, -1)
+            # A. image-guided cross attention, CLS query only (fcmf_pretraining.py:48-93)
+            converted_img = self.vismap2text(_fold(visual_embeds_att).to(dt))  # [B*I, 49, H]
+            if self.mde is not None:
+                # K = int(49 * alpha) strong patches, all valid (fcmf_pretraining.py:272-287)
+                converted_img = self.mde(text_rep, converted_img)
+                img_mask = torch.ones(converted_img.shape[:2], dtype=torch.int32,
+                                      device=converted_img.device)
+            else:
+                img_mask = added_attention_mask[:, :cfg.num_patches].repeat_interleave(num_imgs, 0)
+            ext_img_mask = layers.extend_attention_mask(img_mask, dtype=dt)
+            text2img = self.text2img_attention(text_rep[:, :1], converted_img, ext_img_mask, rng)
+            all_h = self.text2img_pooler(text2img).reshape(b, num_imgs, -1)
 
-        # B. geometric ROI-aware attention (fcmf_pretraining.py:95-124); the
-        # mask slices text positions [:L+num_roi] (reference quirk)
-        t2r_mask = added_attention_mask[:, :seq_len + cfg.num_roi]
-        ext_t2r_mask = layers.extend_attention_mask(
-            t2r_mask.repeat_interleave(num_imgs, 0), dtype=dt)
-        converted_roi = self.roimap2text(_fold(roi_embeds_att).to(dt))  # [B*I, R, H]
-        relative_roi = self.box_head(converted_roi, converted_roi, converted_roi,
-                                     _fold(roi_coors), rng)
-        text_roi = torch.cat([text_rep, relative_roi], dim=1)
-        roi_encoded = self.mm_attention(text_roi, ext_t2r_mask, num_query_tokens=1, rng=rng)
-        all_r = self.text2roi_pooler(roi_encoded).reshape(b, num_imgs, -1)
+            # B. geometric ROI-aware attention (fcmf_pretraining.py:95-124); the
+            # mask slices text positions [:L+num_roi] (reference quirk)
+            t2r_mask = added_attention_mask[:, :seq_len + cfg.num_roi]
+            ext_t2r_mask = layers.extend_attention_mask(
+                t2r_mask.repeat_interleave(num_imgs, 0), dtype=dt)
+            converted_roi = self.roimap2text(_fold(roi_embeds_att).to(dt))  # [B*I, R, H]
+            relative_roi = self.box_head(converted_roi, converted_roi, converted_roi,
+                                         _fold(roi_coors), rng)
+            text_roi = torch.cat([text_rep, relative_roi], dim=1)
+            roi_encoded = self.mm_attention(text_roi, ext_t2r_mask, num_query_tokens=1, rng=rng)
+            all_r = self.text2roi_pooler(roi_encoded).reshape(b, num_imgs, -1)
 
-        # C. fusion [CLS | h_1..h_I | r_1..r_I] (fcmf_pretraining.py:126-141)
-        fusion = torch.cat([sequence_output[:, :1], all_h, all_r], dim=1)
-        comb_mask = added_attention_mask[:, :1 + 2 * num_imgs]
-        ext_comb_mask = layers.extend_attention_mask(comb_mask, dtype=dt)
-        return self.mm_attention(fusion, ext_comb_mask, rng=rng)
+            # C. fusion [CLS | h_1..h_I | r_1..r_I] (fcmf_pretraining.py:126-141)
+            fusion = torch.cat([sequence_output[:, :1], all_h, all_r], dim=1)
+            comb_mask = added_attention_mask[:, :1 + 2 * num_imgs]
+            ext_comb_mask = layers.extend_attention_mask(comb_mask, dtype=dt)
+            return self.mm_attention(fusion, ext_comb_mask, rng=rng)
 
 
 class FCMF(nn.Module):

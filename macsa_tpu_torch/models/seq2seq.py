@@ -34,6 +34,7 @@ from macsa_tpu_torch.models import layers
 from macsa_tpu_torch.models.decoder import IAOGDecoder, TiedHead
 from macsa_tpu_torch.models.fcmf import FCMFEncoder
 from macsa_tpu_torch.parallel import sharding
+from macsa_tpu_torch.utils.logging import span
 
 TIED_TABLE_NAMES = ("decoder.embedding.weight", "decoder.dense.weight",
                     "encoder.bert.cell.embeddings.word_embeddings.weight")
@@ -99,8 +100,9 @@ class FCMFSeq2Seq(nn.Module):
         enc_output, combined_mask = self.encode(
             enc_input_ids, visual_embeds_att, roi_embeds_att, roi_coors, token_type_ids,
             attention_mask, added_attention_mask, rng)
-        return self.decoder(dec_input_ids, enc_output, combined_mask, rng,
-                            return_hidden=return_hidden)
+        with span("decoder"):
+            return self.decoder(dec_input_ids, enc_output, combined_mask, rng,
+                                return_hidden=return_hidden)
 
     # ------------------------------------------------------------------
     # Decoding (deterministic: no rng reaches a module, so no dropout)

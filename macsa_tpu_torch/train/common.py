@@ -28,6 +28,7 @@ from macsa_tpu_torch.config import TextEncoderConfig
 from macsa_tpu_torch.data.images import roi_boxes_from_csv
 from macsa_tpu_torch.data.text_preprocess import TextNormalize, convert_unicode
 from macsa_tpu_torch.ops import cuda_lib
+from macsa_tpu_torch.utils.logging import SPANS, span
 
 _HF_FIELDS = ("vocab_size", "hidden_size", "num_hidden_layers", "num_attention_heads",
               "intermediate_size", "max_position_embeddings")
@@ -59,15 +60,23 @@ def resolve_fused_attention(flag: str, device: torch.device) -> bool:
 def to_device(batch: dict, device: torch.device) -> dict:
     """A loader batch's arrays as tensors on `device` (indices, texts and
     the pad mask stay on the host)."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
-            for k, v in batch.items()
-            if k not in _NUMPY_KEYS_NOT_SENT and not isinstance(v, list)}
+    with span("h2d", device=True) as traced:
+        sent = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True)
+                for k, v in batch.items()
+                if k not in _NUMPY_KEYS_NOT_SENT and not isinstance(v, list)}
+        if traced is not None:
+            traced.counts["bytes"] = sum(t.nbytes for t in sent.values())
+        return sent
 
 
 class EpochMeter:
     """What a driver records of one train epoch: its steps and samples, its
-    seconds, the time the host waited for the loader, and the kernels
-    launched (`ops.cuda_lib.launch_counts`, the difference over the epoch).
+    seconds (`time.perf_counter`: the wall clock can step mid-epoch), the
+    time the host waited for the loader, the kernels launched
+    (`ops.cuda_lib.launch_counts`, the difference over the epoch) and,
+    where spans ran in the epoch (under a profiler: `--profile_dir`), each
+    span's host milliseconds a traced step (`span_host_ms_per_step`, from
+    `utils.logging.SPANS`' totals over the step roots closed in the epoch).
 
         meter = EpochMeter(epoch, int(state.step))
         for batch in meter.batches(loader):
@@ -79,16 +88,17 @@ class EpochMeter:
     def __init__(self, epoch: int, first_step: int):
         self._counts = cuda_lib.launch_counts
         self._launches0 = dict(self._counts)
+        self._spans0 = SPANS.snapshot()
         self.epoch, self.first_step = epoch, first_step
         self.steps, self.samples, self.waited = 0, 0, 0.0
-        self.t0 = time.time()
+        self.t0 = time.perf_counter()
 
     def batches(self, loader) -> Iterator[dict]:
         it = iter(loader)
         while True:
-            t_wait = time.time()
+            t_wait = time.perf_counter()
             batch = next(it, None)
-            self.waited += time.time() - t_wait
+            self.waited += time.perf_counter() - t_wait
             if batch is None:
                 return
             yield batch
@@ -99,16 +109,22 @@ class EpochMeter:
 
     def rate(self) -> float:
         """Samples a second so far."""
-        return self.samples / (time.time() - self.t0)
+        return self.samples / (time.perf_counter() - self.t0)
 
     def stop(self, **extra) -> dict:
         """End the epoch's clock -> its record, with `extra` added."""
-        self.seconds = time.time() - self.t0
+        self.seconds = time.perf_counter() - self.t0
         launched = {k: v - self._launches0.get(k, 0) for k, v in self._counts.items()
                     if v != self._launches0.get(k, 0)}
-        return {"epoch": self.epoch, "first_step": self.first_step, "steps": self.steps,
-                "samples": self.samples, "seconds": self.seconds,
-                "loader_wait_seconds": self.waited, **extra, "kernel_launches": launched}
+        record = {"epoch": self.epoch, "first_step": self.first_step, "steps": self.steps,
+                  "samples": self.samples, "seconds": self.seconds,
+                  "loader_wait_seconds": self.waited, **extra, "kernel_launches": launched}
+        (steps0, ns0), (steps1, ns1) = self._spans0, SPANS.snapshot()
+        if steps1 > steps0:
+            record["span_host_ms_per_step"] = {
+                k: (v - ns0.get(k, 0)) * 1e-6 / (steps1 - steps0) for k, v in ns1.items()
+                if v != ns0.get(k, 0)}
+        return record
 
     def write(self, writer, step: int, **extra) -> None:
         """The epoch's line of `metrics.jsonl` (after `stop`)."""

@@ -42,6 +42,7 @@ from macsa_tpu_torch.models.layers import LayerNormTF
 from macsa_tpu_torch.models.resnet import FrozenBatchNorm
 from macsa_tpu_torch.parallel import sharding
 from macsa_tpu_torch.parallel.mesh import all_reduce_gradients
+from macsa_tpu_torch.utils.logging import span
 
 Schedule = Callable[[int], float]
 NO_DECAY_LEAVES = ("bias", "out_bias")  # run_multimodal_fcmf.py:249
@@ -169,6 +170,10 @@ class AdamW:
         """Take the parameters' gradients: accumulate them, or (every
         `accumulate_steps` calls) average them over the ranks, clip and
         apply one update."""
+        with span("optimizer"):
+            self._step()
+
+    def _step(self) -> None:
         grads = _grads(self.params)
         if self.accumulate_steps > 1:
             if self._acc is None:

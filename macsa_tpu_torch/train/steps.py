@@ -24,6 +24,7 @@ from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq, seq2seq_loss, tied_head_
 from macsa_tpu_torch.ops.image_prep import device_normalize
 from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train.state import TrainState
+from macsa_tpu_torch.utils.logging import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -106,12 +107,15 @@ def make_finetune_train_step(state: TrainState, dp_index: Optional[int] = None) 
     dp_index = mesh.dp_index() if dp_index is None else dp_index
 
     def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
-        state.model.train()
-        rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device, dp_index)
-        loss, acc = finetune_loss(state.model, state.visual, batch, rng, state.fine_tune_cnn)
-        loss.backward()
-        state.apply_gradients()
-        return {"loss": loss.detach(), "accuracy": acc}
+        with span("train_step", step=True):
+            state.model.train()
+            rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device, dp_index)
+            loss, acc = finetune_loss(state.model, state.visual, batch, rng,
+                                      state.fine_tune_cnn)
+            with span("backward"):
+                loss.backward()
+            state.apply_gradients()
+            return {"loss": loss.detach(), "accuracy": acc}
 
     return step
 
@@ -125,7 +129,7 @@ def make_finetune_eval_step(model: FCMF, visual: VisualFeatures) -> Callable:
         was_training = model.training
         model.eval()
         try:
-            with torch.inference_mode():
+            with span("eval_step", step=True, device=True), torch.inference_mode():
                 logits = fcmf_forward_all_aspects(model, visual, batch)
                 return logits.argmax(-1), logits
         finally:
@@ -141,10 +145,11 @@ def visual_features(model, visual: VisualFeatures, batch: Batch,
     filled without autograd), else the ResNet over its pixels, with
     autograd only when `fine_tune_cnn`."""
     dt = model.config.model.torch_dtype
-    if "grid" in batch:
-        return batch["grid"].to(dt), batch["roi"].to(dt)
-    with torch.set_grad_enabled(fine_tune_cnn and torch.is_grad_enabled()):
-        return extract_visual(visual, batch["images"], batch["roi_images"], out_dtype=dt)
+    with span("visual", device=True):
+        if "grid" in batch:
+            return batch["grid"].to(dt), batch["roi"].to(dt)
+        with torch.set_grad_enabled(fine_tune_cnn and torch.is_grad_enabled()):
+            return extract_visual(visual, batch["images"], batch["roi_images"], out_dtype=dt)
 
 
 def pretrain_loss(model: FCMFSeq2Seq, visual: VisualFeatures, batch: Batch,
@@ -195,11 +200,14 @@ def make_pretrain_train_step(state: TrainState, vocab_chunk: int = 0,
     dp_index = mesh.dp_index() if dp_index is None else dp_index
 
     def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
-        state.model.train()
-        rng = DropoutRng.for_step(seed, state.step, batch["enc_input_ids"].device, dp_index)
-        loss, acc = pretrain_loss(state.model, state.visual, batch, rng, vocab_chunk)
-        loss.backward()
-        state.apply_gradients()
-        return {"loss": loss.detach(), "token_accuracy": acc}
+        with span("train_step", step=True):
+            state.model.train()
+            rng = DropoutRng.for_step(seed, state.step, batch["enc_input_ids"].device,
+                                      dp_index)
+            loss, acc = pretrain_loss(state.model, state.visual, batch, rng, vocab_chunk)
+            with span("backward"):
+                loss.backward()
+            state.apply_gradients()
+            return {"loss": loss.detach(), "token_accuracy": acc}
 
     return step

@@ -1,0 +1,19 @@
+"""Host time of the optimizer a train step: `AdamW.step` (the gradient
+all-reduce, the clip, the schedule and the foreach update).
+
+The median over the traced steps (the card-only stretch's and the
+host-traced one's) of the host milliseconds a step spends in the port's
+`optimizer` span (`macsa_tpu_torch/utils/logging.span_median`: the span's
+`time.perf_counter_ns` interval).  Spans record only while a profiler
+records, so the figure carries the profiler's per-launch cost: read it
+beside the cell's stretch (the traced step over the untraced one, PERF.md
+§5), since a change that cuts launches cuts that cost too.  None where
+the program has no spans."""
+
+
+def read(r: dict):
+    try:
+        from macsa_tpu_torch.utils.logging import span_median
+    except ImportError:  # a program without spans
+        return None
+    return span_median("optimizer", "host_ms")

@@ -10,6 +10,8 @@ package's: the device cache on the same updates and lookups, the disk cache
 on the same files, written by one package and read by the other.
 """
 
+import contextlib
+import itertools
 import os
 
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from macsa_tpu_torch.train.checkpoints import CheckpointManager
 from macsa_tpu_torch.train.feature_cache import FeatureCacheFeeder, VisualFeatureCache
 from macsa_tpu_torch.train.state import TrainState
 from macsa_tpu_torch.train.steps import extract_visual, make_finetune_train_step
+from macsa_tpu_torch.utils import logging as tlogging
 from test_torch_port_slice import (KW, MODEL_KW, RESNET_KW, TEXT_KW, _torch_batch,
                                    serving_batch)
 
@@ -296,22 +299,34 @@ def test_feeder_extracts_once_then_serves_cache_and_disk(tmp_path, rng, index_ke
     assert torch.equal(served["grid"], grid.bfloat16().float())
 
 
-def test_epoch_meter_records_steps_wait_and_launches():
+def test_epoch_meter_records_steps_wait_and_launches(monkeypatch):
     class Writer:
         def write(self, step, **kw):
             self.step, self.kw = step, kw
 
+    wall = itertools.count(10 ** 9, -3600)  # a wall clock stepped back an hour each read
+    monkeypatch.setattr(common.time, "time", lambda: float(next(wall)))
     cuda_lib.launch_counts["before"] += 2
     try:
         meter = common.EpochMeter(epoch=3, first_step=40)
         for batch in meter.batches([{"x": 1}, {"x": 2}, {"x": 3}]):
             cuda_lib.launch_counts["some_kernel"] += batch["x"]
+            # the spans of a traced step (--profile_dir) on the last two
+            with (torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+                  if batch["x"] > 1 else contextlib.nullcontext()):
+                with tlogging.span("train_step", step=True):
+                    with tlogging.span("optimizer"):
+                        torch.ones(2).sum()
             meter.count(8)
         assert meter.rate() > 0
         record = meter.stop(losses=[1.5])
     finally:
         cuda_lib.reset_launch_counts()
     assert record["kernel_launches"] == {"some_kernel": 6}  # the epoch's own, not "before"
+    assert 0 < record["seconds"] < 60  # the monotonic clock, not the wall's
+    spans = record["span_host_ms_per_step"]  # over the two traced steps
+    assert set(spans) == {"train_step", "optimizer"}
+    assert 0 < spans["optimizer"] <= spans["train_step"]
     assert (record["epoch"], record["first_step"], record["steps"], record["samples"]) == \
         (3, 40, 3, 24)
     assert record["losses"] == [1.5]
@@ -322,5 +337,5 @@ def test_epoch_meter_records_steps_wait_and_launches():
     assert writer.kw["epoch_mean_loss"] == 0.5
     assert writer.kw["epoch_samples_per_s"] == 24 / record["seconds"]
     idle = common.EpochMeter(0, 0)
-    idle.stop()
+    assert "span_host_ms_per_step" not in idle.stop()  # no span ran under a profiler
     idle.write(None, 0)  # an epoch without steps writes no line
