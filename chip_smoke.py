@@ -18,7 +18,9 @@ once beside the one-launch kernel at 170 rows; the CUDA-core K1, which no
 path reaches, at head width 32, both dtypes and ways; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
-whole identity bottleneck, at all four stages; both must run their
+whole identity bottleneck, at all four stages, then beside the Bottleneck
+module over the frame counts of the ResNet's passes (where
+`resnet.takes_k5` sends the main path's blocks to K5); both must run their
 tensor-core variants, bf16 "wgmma" and f32 "tf32x3" (three TF32 products
 for each f32 product); the CUDA-core K4 and K5 in f32 at one shape each
 that no ResNet width has), times each beside its plain version, its bound on
@@ -113,6 +115,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 3, 10
 PROFILE_STEPS, PROFILE_ROWS = 2, 24  # the bf16 train step's device-time breakdown
 STAGE3_IMAGES = BATCH * (7 + 28)  # one serving batch: 8 x (7 images + 28 ROI crops)
+# frames of a ResNet pass: a tagger's one image, one review's images, two
+# reviews', one review's ROI crops (`resnet.K5_MIN_FRAMES`), a batch's
+# images, its ROI crops
+K5_FRAMES = (1, 7, 16, 28, BATCH * 7, BATCH * 28)
 P1_BATCH, P1_STEPS = 16, 3  # Phase 1: the driver's batch; timed steps in one reading
 P1_READINGS = {"float32": 1, "bfloat16": 3}  # readings of each feed (bf16 is the default path)
 
@@ -250,6 +256,38 @@ K1_VARIANT = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 def expect_counts(cuda_lib, want: dict, what: str) -> None:
     if dict(cuda_lib.launch_counts) != want:
         raise AssertionError(f"{what}: launches {dict(cuda_lib.launch_counts)}, not {want}")
+
+
+def k5_counts(passes: dict, frames: int = BATCH * 7) -> dict:
+    """K5's entries of `launch_counts` after frozen ResNet-152 passes at
+    224^2 without autograd, {dtype name: passes} of `frames` frames each
+    (a batch's images, the fewest of its two passes): one launch per
+    identity block that `resnet.takes_k5` names (`resnet.k5_blocks`),
+    "tf32x3" in f32 and "wgmma" in bf16."""
+    from macsa_tpu_torch.config import ResNetConfig
+    from macsa_tpu_torch.models import resnet
+
+    out = collections.Counter()
+    for dtype, n in passes.items():
+        k = resnet.k5_blocks(ResNetConfig(dtype=dtype), 224, frames) * n
+        if k:
+            out["fused_bottleneck"] += k
+            out["fused_bottleneck." + ("wgmma" if dtype == "bfloat16" else "tf32x3")] += k
+    return dict(out)
+
+
+@contextlib.contextmanager
+def resnet_modules_only():
+    """Every ResNet block on its module while the block runs (`takes_k5`
+    says no): the visual layer of a plain path, which launches no kernel."""
+    from macsa_tpu_torch.models import resnet
+
+    rule = resnet.takes_k5
+    resnet.takes_k5 = lambda *args: False
+    try:
+        yield
+    finally:
+        resnet.takes_k5 = rule
 
 
 def f32_ulp_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
@@ -883,7 +921,9 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
     variant "tf32x3") and bf16 ("wgmma"); the weights come from a port
     `Bottleneck` module (random weights and frozen-BN statistics), whose own
     forward on cuDNN (f32 with TF32 off) is the library yardstick, and
-    against which f32 is held too."""
+    against which f32 is held too.  Then both again, device time queued
+    behind a spin kernel, at the frame counts of `K5_FRAMES`: where
+    `resnet.takes_k5` draws its line."""
     n = STAGE3_IMAGES
     # relative to max|ref|.  f32: summation order only.  bf16: the plain
     # version rounds the conv1 and conv3 products to bf16 where the kernel
@@ -901,7 +941,7 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
             block = resnet.Bottleneck(c, f, compute_dtype=dtype, device=dev)
             layers.init_weights(block, torch.Generator(dev).manual_seed(12))
             random_bn_(block, torch.Generator(dev).manual_seed(13))
-            args = fused_backbone.block_args(block)
+            args = resnet.block_args(block)
             cast = [t.to(dtype) if i in (0, 3, 6) else t for i, t in enumerate(args)]
             cuda_lib.reset_launch_counts()
             got = fr.fused_bottleneck(x2, *args, n, hw, hw)
@@ -928,14 +968,27 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
             module_ms = cuda_ms(lambda: block(x4), iters=iters, warmup=1)
             bd = kernel_bound(2.0 * n * hw * hw * (2 * c * f + 9 * f * f),
                               2 * nbytes(x2) + sum(nbytes(t) for t in cast), dtype)
+            by_frames = {}
+            for frames in K5_FRAMES:
+                xf, xf4 = x2[:frames * hw * hw], x4[:frames]
+                k5_q = queued_ms(lambda: fr.fused_bottleneck(xf, *args, frames, hw, hw), iters=20)
+                module_q = queued_ms(lambda: block(xf4), iters=20)
+                by_frames[frames] = {"ms": k5_q[0], "library_ms": module_q[0],
+                                     "queued": k5_q[1] and module_q[1],
+                                     "bound_ms": bd["bound_ms"] * frames / n}
             report[(stage, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                       "library_ms": module_ms, "variant": variant,
-                                      "shape": [n * hw * hw, c, f], **bd}
+                                      "shape": [n * hw * hw, c, f], "by_frames": by_frames, **bd}
             print(f"phase k5 {str(dtype)[6:]} stage {stage} [{n * hw * hw},{c}] F={f} n={n} "
                   f"{hw}x{hw} ({variant}): max_abs_err={err:.3g} rel {rel:.3g} (tol {tol} of "
                   f"max|ref|), vs the Bottleneck module rel {module_rel:.3g}; kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={module_ms:.4f} (the module, cuDNN "
                   f"convs{', TF32 off' if dtype == torch.float32 else ''}) {bound_text(bd)}")
+            for frames, t in by_frames.items():
+                print(f"phase k5 {str(dtype)[6:]} stage {stage} over {frames} frames, device "
+                      f"ms queued: K5 {t['ms']:.4f}, the module {t['library_ms']:.4f} "
+                      f"(K5 / module {t['ms'] / t['library_ms']:.3f}; bound {t['bound_ms']:.4f}; "
+                      f"{'queued' if t['queued'] else 'NOT all queued'})")
             del x2, x4, block, args, cast
             torch.cuda.empty_cache()
     cuda_lib.reset_launch_counts()
@@ -1051,10 +1104,12 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     preds16, logits16, ms16 = drive(steps.make_finetune_eval_step(model16, visual16))
     launches = dict(cuda_lib.launch_counts)
     forwards = 2 * (ITERS + 1)
-    # half the forwards are bf16 (K1 in bf16 on the tensor cores), half f32 (3xTF32)
+    # half the forwards are bf16 (K1 in bf16 on the tensor cores), half f32
+    # (3xTF32); K5 on the identity blocks of stages 1-3 of both ResNet passes
     k1 = cfg.text.num_hidden_layers * forwards
     want = {"fused_self_attention": k1, "fused_self_attention.wgmma": k1 // 2,
-            "fused_self_attention.tf32x3": k1 // 2, "device_normalize": 2 * forwards}
+            "fused_self_attention.tf32x3": k1 // 2, "device_normalize": 2 * forwards,
+            **k5_counts({"float32": forwards, "bfloat16": forwards})}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     for name, logits in (("f32", logits32), ("bf16", logits16)):
@@ -1063,12 +1118,14 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             raise AssertionError(f"{name} logits {tuple(logits.shape)} not finite/shaped")
 
     # the same weights on the plain path: attention without K1, pixels
-    # normalized by K2's plain version (a float batch only casts)
+    # normalized by K2's plain version (a float batch only casts), the
+    # ResNet on its modules
     plain_batch = dict(batch)
     for key in ("images", "roi_images"):
         plain_batch[key] = image_prep.unpack_normalize_pixels_reference(
             batch[key], torch.float32)
-    preds_p, logits_p = steps.make_finetune_eval_step(plain32, visual32)(plain_batch)
+    with resnet_modules_only():
+        preds_p, logits_p = steps.make_finetune_eval_step(plain32, visual32)(plain_batch)
     torch.cuda.synchronize()
     if cuda_lib.launch_counts != launches:
         raise AssertionError("the plain path launched a kernel")
@@ -1084,8 +1141,8 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     print(f"phase slice bf16: logits finite; max |bf16 - f32| = {bf16_gap:.3g}, "
           f"pred agreement {agree:.3f}; {ms16:.2f} ms/forward, "
           f"{pairs * 1e3 / ms16:.1f} pairs/s on {card}")
-    print(f"phase slice launches over {forwards} forwards: {launches} (12 K1 per forward: "
-          f"wgmma variant in bf16, tf32x3 in f32)")
+    print(f"phase slice launches over {forwards} forwards: {launches} (12 K1 and 88 K5 per "
+          f"forward: wgmma variant in bf16, tf32x3 in f32)")
     return launches
 
 
@@ -1093,7 +1150,9 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
                 fused_backbone):
     """The serving forward at full width through the fused backbone runner
     (stage 3's identity blocks through K5) and the FCMF forward with
-    `use_pallas_box_attention=True` (K3), against the plain path."""
+    `use_pallas_box_attention=True` (K3), against the plain path; the
+    backbone's time a pass with stage 3 through K5, by the rule
+    (`resnet.takes_k5`: stages 1-3) and on the modules alone."""
     def build(dtype: str, kernels: bool):
         cfg = config.FCMFConfig(
             model=config.ModelConfig(dtype=dtype, fused_attention=kernels),
@@ -1168,7 +1227,8 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     for key in ("images", "roi_images"):
         plain_batch[key] = image_prep.unpack_normalize_pixels_reference(batch[key],
                                                                         torch.float32)
-    preds_p, logits_p = steps.make_finetune_eval_step(plain32, visual32)(plain_batch)
+    with resnet_modules_only():
+        preds_p, logits_p = steps.make_finetune_eval_step(plain32, visual32)(plain_batch)
     torch.cuda.synchronize()
     if cuda_lib.launch_counts != launches:
         raise AssertionError("the plain path launched a kernel")
@@ -1188,9 +1248,13 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             imgs = image_prep.device_normalize(batch["images"], dt)
             rois = image_prep.device_normalize(batch["roi_images"], dt)
             feats[name] = fused_backbone.extract_features(visual, imgs, rois)
-            feats["plain_" + name] = (visual.grid_features(imgs), visual.pooled_features(rois))
+            feats["plain_" + name] = fused_backbone.extract_features(visual, imgs, rois,
+                                                                     stages=())
             times[name] = (
                 cuda_ms(lambda: fused_backbone.extract_features(visual, imgs, rois),
+                        iters=3, warmup=1),
+                cuda_ms(lambda: fused_backbone.extract_features(visual, imgs, rois,
+                                                                stages=()),
                         iters=3, warmup=1),
                 cuda_ms(lambda: (visual.grid_features(imgs), visual.pooled_features(rois)),
                         iters=3, warmup=1))
@@ -1219,10 +1283,10 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
         print(f"phase fused {head} features vs the plain f32 heads (rel to max|ref|): fused f32 "
               f"{f32_err:.3g} (tol 1e-4), fused bf16 {bf16_err:.3g}, plain bf16 "
               f"{plain_bf16_err:.3g} (fused bf16 <= 2 x plain bf16)")
-    for name, (fused_ms, plain_ms) in times.items():
+    for name, (fused_ms, plain_ms, rule_ms) in times.items():
         print(f"phase fused backbone {name} over {STAGE3_IMAGES} images at 224^2: fused "
-              f"(stage 3 through K5) {fused_ms:.2f} ms/pass, plain {plain_ms:.2f} ms/pass on "
-              f"{card}")
+              f"(stage 3 through K5) {fused_ms:.2f} ms/pass, plain {plain_ms:.2f} ms/pass; the "
+              f"heads (two passes, K5 where resnet.takes_k5 says) {rule_ms:.2f} ms on {card}")
     print(f"phase fused launches over {forwards} forwards: {launches} ({identity_blocks} K5 "
           f"and {cfg.text.num_hidden_layers} K1 (both tf32x3 in f32, wgmma in bf16), 1 K3, 2 "
           f"K2 per forward)")
@@ -1338,9 +1402,11 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             step32 = step
     launches = dict(cuda_lib.launch_counts)
     n_steps = 2 * (TRAIN_STEPS + 1)
-    # no K3: with dropout active the box head takes its plain path, as in JAX
+    # no K3: with dropout active the box head takes its plain path, as in JAX;
+    # the frozen ResNet's two passes a step without autograd: K5
     k1 = cfg.text.num_hidden_layers * n_steps
-    want = {"device_normalize": 2 * n_steps}
+    want = {"device_normalize": 2 * n_steps,
+            **k5_counts({"float32": n_steps, "bfloat16": n_steps})}
     for name in ("fused_self_attention", "fused_self_attention_bwd"):
         want.update({name: k1, f"{name}.wgmma": k1 // 2, f"{name}.tf32x3": k1 // 2})
     if launches != want:
@@ -1351,7 +1417,7 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
               f"ms/step, {cpu_ms:.2f} ms/step of process CPU time), on {card}; losses "
               + " ".join(f"{x:.4f}" for x in losses))
     print(f"phase train launches over {n_steps} steps: {launches} (12 K1 forward, "
-          f"12 K1 backward (wgmma variants in bf16, tf32x3 in f32), 2 K2, 0 K3 per "
+          f"12 K1 backward (wgmma variants in bf16, tf32x3 in f32), 2 K2, 88 K5, 0 K3 per "
           f"step: dropout 0.1 takes the box head's plain path)")
     # where the bf16 step's device time goes (after the counts were read)
     rows = device_profile(lambda: step(batch, seed=0), iters=PROFILE_STEPS, warmup=0)
@@ -1375,7 +1441,7 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     del step32
     torch.cuda.empty_cache()
 
-    # the host cost of the device guard around every launch (26 a step):
+    # the host cost of the device guard around K1's and K2's launches (26 a step):
     # the bf16 step with it, without, without, with; and one guard alone
     def step_ms() -> float:
         torch.cuda.synchronize()
@@ -1450,7 +1516,7 @@ def phase_finetune(card, cuda_lib, synth, finetune):
                     not all(math.isfinite(x) for x in ep["losses"]):
                 raise AssertionError(f"finetune {name} epoch: {ep}")
         k1 = layers_per_pass * steps
-        want_cold = {"device_normalize": 2 * steps}
+        want_cold = {"device_normalize": 2 * steps, **k5_counts({"bfloat16": 2 * steps})}
         want_warm = {}
         for name in ("fused_self_attention", "fused_self_attention_bwd"):
             for want in (want_cold, want_warm):
@@ -1588,7 +1654,8 @@ def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, st
     k1 = cfg.text.num_hidden_layers
     expect_counts(cuda_lib, {"device_normalize": 2, "fused_self_attention": k1,
                              "fused_self_attention.tf32x3": k1, "fused_self_attention_bwd": k1,
-                             "fused_self_attention_bwd.tf32x3": k1}, "pretrain grad check")
+                             "fused_self_attention_bwd.tf32x3": k1, **k5_counts({"float32": 2})},
+                  "pretrain grad check")
     loss_p, _ = steps.pretrain_loss(plain, visual, plain_batch)
     loss_p.backward()
     torch.cuda.synchronize()
@@ -1672,7 +1739,8 @@ def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, st
             got = {k: n - before.get(k, 0) for k, n in cuda_lib.launch_counts.items()
                    if n != before.get(k, 0)}
             variant = K1_VARIANT[m.config.model.torch_dtype]
-            want = {} if feed == "cached" else {"device_normalize": 2 * per_feed}
+            want = {} if feed == "cached" else {
+                "device_normalize": 2 * per_feed, **k5_counts({dtype: 2 * per_feed})}
             for name in ("fused_self_attention", "fused_self_attention_bwd"):
                 want.update({name: k1 * per_feed, f"{name}.{variant}": k1 * per_feed})
             if got != want:
@@ -1886,10 +1954,17 @@ def phase_pretrain(card, cuda_lib, synth, pretrain, finetune):
         forward = k1 + layers_per_pass * debugs  # a debug decode runs the encoder once
         want_warm = {"fused_self_attention": forward, "fused_self_attention.wgmma": forward,
                      "fused_self_attention_bwd": k1, "fused_self_attention_bwd.wgmma": k1}
-        # a review's features are extracted by the first step that meets it
+        # a review's features are extracted by the first step that meets it;
+        # an extracting pass over K5_MIN_FRAMES frames or more runs K5
         cold_k2 = cold["kernel_launches"].get("device_normalize", 0)
-        if {k: v for k, v in cold["kernel_launches"].items() if k != "device_normalize"} \
-                != want_warm or not 2 <= cold_k2 <= 2 * n_steps or cold_k2 % 2 or \
+        cold_k5 = {k: v for k, v in cold["kernel_launches"].items()
+                   if k.startswith("fused_bottleneck")}
+        per_pass = k5_counts({"bfloat16": 1})
+        k5_passes = cold_k5.get("fused_bottleneck", 0) // per_pass["fused_bottleneck"]
+        if {k: v for k, v in cold["kernel_launches"].items()
+                if k != "device_normalize" and k not in cold_k5} != want_warm or \
+                not 2 <= cold_k2 <= 2 * n_steps or cold_k2 % 2 or \
+                cold_k5 != k5_counts({"bfloat16": k5_passes}) or k5_passes > cold_k2 or \
                 warm["kernel_launches"] != want_warm:
             raise AssertionError(f"pretrain launches: cold {cold['kernel_launches']}, warm "
                                  f"{warm['kernel_launches']} (want {want_warm}: no K2, every "
@@ -2225,6 +2300,14 @@ def phase_mde(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_pr
         for key in ("images", "roi_images"):
             plain_batches[name][key] = image_prep.unpack_normalize_pixels_reference(batch[key],
                                                                                     dt)
+        # the frozen ResNet's features as the kernel path computes them (K5
+        # on stages 1-3 by `resnet.takes_k5`), given to the plain path: the
+        # comparison holds K1 and the MDE alone, and the box head's gate
+        # gradients, which carry 1/g (PERF.md section 2), see one input
+        with torch.no_grad():
+            grid, roi = steps.extract_visual(visuals[name], plain_batches[name]["images"],
+                                             plain_batches[name]["roi_images"], out_dtype=dt)
+        plain_batches[name].update(grid=grid, roi=roi)
 
     def run(dtype: str, path: str) -> dict:
         model, visual = models[(dtype, path)], visuals[dtype]
@@ -2245,7 +2328,8 @@ def phase_mde(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_pr
     launches = dict(cuda_lib.launch_counts)
     want = {"device_normalize": 8, "fused_self_attention": 48, "fused_self_attention.wgmma": 24,
             "fused_self_attention.tf32x3": 24, "fused_self_attention_bwd": 24,
-            "fused_self_attention_bwd.wgmma": 12, "fused_self_attention_bwd.tf32x3": 12}
+            "fused_self_attention_bwd.wgmma": 12, "fused_self_attention_bwd.tf32x3": 12,
+            **k5_counts({"float32": 4, "bfloat16": 4})}
     if launches != want:
         raise AssertionError(f"mde launch counts {launches} != {want}")
     got.update({(dt, "plain"): run(dt, "plain") for dt in dts})
@@ -2318,7 +2402,13 @@ def phase_serve(card, cuda_lib, cli, fcmf, steps, data, ft_out, taggers, work):
     single_s = time.perf_counter() - t0
     launches = dict(cuda_lib.launch_counts)
     forwards = SERVE_RECORDS // SERVE_BATCH + 1
-    want = {"fused_self_attention": 12 * forwards, "fused_self_attention.tf32x3": 12 * forwards}
+    # K5: both passes of a batch forward; of the single record's, its 28 ROI
+    # crops and not its 7 images; none in the taggers' one-image calls
+    k5 = collections.Counter(k5_counts({"float32": 2 * (forwards - 1)}))
+    k5.update(k5_counts({"float32": 1}, frames=28))
+    k5.update(k5_counts({"float32": 1}, frames=7))
+    want = {"fused_self_attention": 12 * forwards, "fused_self_attention.tf32x3": 12 * forwards,
+            **k5}
     if launches != want:
         raise AssertionError(f"serve launches {launches} != {want} (f32: K1's 3xTF32 "
                              f"variant; host-normalized pixels: no K2)")
@@ -2335,9 +2425,10 @@ def phase_serve(card, cuda_lib, cli, fcmf, steps, data, ft_out, taggers, work):
     plain.load_state_dict(server.model.state_dict(), strict=True)
     plain_step = steps.make_finetune_eval_step(plain, server.visual)
     recs = [server.prep_record(r["text"], r["image_list"]) for r in records]
-    preds = torch.cat([plain_step(server.batch(recs[i:i + SERVE_BATCH]))[0]
-                       for i in range(0, len(recs), SERVE_BATCH)]).cpu().tolist()
-    single_plain = cli.report(plain_step(server.batch(recs[:1]))[0][0].cpu().tolist())
+    with resnet_modules_only():
+        preds = torch.cat([plain_step(server.batch(recs[i:i + SERVE_BATCH]))[0]
+                           for i in range(0, len(recs), SERVE_BATCH)]).cpu().tolist()
+        single_plain = cli.report(plain_step(server.batch(recs[:1]))[0][0].cpu().tolist())
     torch.cuda.synchronize()
     if cuda_lib.launch_counts != launches:
         raise AssertionError("the serve plain path launched a kernel")
@@ -2598,7 +2689,8 @@ def phase_baselines(dev, card, cuda_lib, data, captions, work) -> dict:
         got = dict(cuda_lib.launch_counts)
         n = BASELINE_STEPS + 2  # the untimed, the timed and the profiled steps
         want = {"fused_self_attention": 12 * n, "fused_self_attention.wgmma": 12 * n,
-                "fused_self_attention_bwd": 12 * n, "fused_self_attention_bwd.wgmma": 12 * n}
+                "fused_self_attention_bwd": 12 * n, "fused_self_attention_bwd.wgmma": 12 * n,
+                **(k5_counts({"bfloat16": 2 * n}) if visual is not None else {})}
         losses = [x.item() for x in losses]
         if got != want or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"baseline {name} bf16 steps: launches {got} (want {want}; "
@@ -2639,7 +2731,8 @@ def phase_baselines(dev, card, cuda_lib, data, captions, work) -> dict:
         (epoch,) = result["epochs"]
         k = SERVE_RECORDS // BATCH
         want = {"fused_self_attention": 12 * k, "fused_self_attention.wgmma": 12 * k,
-                "fused_self_attention_bwd": 12 * k, "fused_self_attention_bwd.wgmma": 12 * k}
+                "fused_self_attention_bwd": 12 * k, "fused_self_attention_bwd.wgmma": 12 * k,
+                **(k5_counts({"bfloat16": 2 * k}) if name != "efcap" else {})}
         files = ("last.pt", "train.log", "metrics.jsonl", f"test_results_{name}.txt",
                  "test_predictions_formatted.txt")
         missing = [f for f in files if not os.path.isfile(os.path.join(out, f))]
@@ -2788,7 +2881,8 @@ def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out,
         logits[dtype] = bundles[dtype].predict(batch)
         torch.cuda.synchronize()
         expect_counts(cuda_lib, {"fused_self_attention": 12,
-                                 f"fused_self_attention.{variant}": 12, "box_attention": 1},
+                                 f"fused_self_attention.{variant}": 12, "box_attention": 1,
+                                 **k5_counts({dtype: 2})},
                       f"bundle {dtype} predict")
         launches.update(cuda_lib.launch_counts)
 
@@ -2832,12 +2926,21 @@ def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out,
     mask = torch.zeros(BATCH * NUM_ASPECTS, 170, device=dev)
     bq, bk, bv = (torch.randn(BATCH * 7 * 8, 4, 96, device=dev, generator=g) for _ in range(3))
     gates = torch.rand(BATCH * 7 * 8, 4, 4, device=dev, generator=g)
+    from macsa_tpu_torch.ops import fused_resnet as fr
+    hw, c, f = RESNET_STAGES[3]  # one identity block of stage 3 over a batch's 56 images
+    x2 = torch.randn(BATCH * 7 * hw * hw, c, device=dev, generator=g)
+    k5_args = (x2, torch.randn(c, f, device=dev, generator=g), *bn_affine(g, f, dev),
+               torch.randn(9, f, f, device=dev, generator=g), *bn_affine(g, f, dev),
+               torch.randn(f, c, device=dev, generator=g), *bn_affine(g, c, dev),
+               BATCH * 7, hw, hw)
     ops_us = {
         "fused_self_attention": (
             host_us(lambda: fa.attention_op(q, k, v, mask, 12, 0.0, 0)),
             host_us(lambda: fa._launch_fwd(q, k, v, mask, 12, 0.0, 0, False))),
         "box_attention": (host_us(lambda: ba.box_attention_op(bq, bk, bv, gates)),
-                          host_us(lambda: ba._launch(bq, bk, bv, gates)))}
+                          host_us(lambda: ba._launch(bq, bk, bv, gates))),
+        "fused_bottleneck": (host_us(lambda: fr.bottleneck_op(*k5_args)),
+                             host_us(lambda: fr._launch_k5(*k5_args)))}
 
     # the CLI with --bundle against the --checkpoint CLI (phase serve's output)
     out = os.path.join(work, "served_bundle.jsonl")
@@ -2848,7 +2951,8 @@ def phase_bundle(dev, card, cuda_lib, cli, export, config, fa, ba, data, ft_out,
     forwards = -(-len(records) // SERVE_BATCH)
     expect_counts(cuda_lib, {"fused_self_attention": 12 * forwards,
                              "fused_self_attention.tf32x3": 12 * forwards,
-                             "box_attention": forwards}, "the CLI with --bundle")
+                             "box_attention": forwards, **k5_counts({"float32": 2 * forwards})},
+                  "the CLI with --bundle")
     launches.update(cuda_lib.launch_counts)
     rows = []
     for name in ("served_bundle.jsonl", "served.jsonl"):
@@ -3073,7 +3177,7 @@ def phase_ddp(dev, card, cuda_lib, finetune, data, work):
             raise AssertionError(f"phase ddp (b) rank {r} launches {got['step_launches']}")
     steps_c = 16 // BATCH
     drivers = [got["driver"] for got in ranks]
-    want_c = {"device_normalize": 2 * steps_c}
+    want_c = {"device_normalize": 2 * steps_c, **k5_counts({"bfloat16": 2 * steps_c})}
     for name in ("fused_self_attention", "fused_self_attention_bwd"):
         want_c.update({name: 12 * steps_c, f"{name}.wgmma": 12 * steps_c})
     if drivers[0]["losses"] != drivers[1]["losses"] or \
@@ -3245,7 +3349,7 @@ def phase_tp(dev, card, cuda_lib, data, work):
                                 "fused_self_attention_bwd": 12,
                                 f"fused_self_attention_bwd.{variant}": 12}
     steps_c = 16 // BATCH
-    want_c = {"device_normalize": 2 * steps_c}
+    want_c = {"device_normalize": 2 * steps_c, **k5_counts({"bfloat16": 2 * steps_c})}
     for name in ("fused_self_attention", "fused_self_attention_bwd"):
         want_c.update({name: 12 * steps_c, f"{name}.wgmma": 12 * steps_c})
     for r, got in enumerate(ranks):
@@ -3486,7 +3590,10 @@ def main() -> int:
               "tools_dev/fused_resnet_experiment.py:82", k4_launches,
               max([r["err"] for r in k4.values()] + [k45_simt["k4"]["max_abs_err"]]), k4_conv1),
         entry("fused_bottleneck", "fused_resnet_wgmma.cu",
-              "tools_dev/fused_resnet_experiment.py:208", fused_launches["fused_bottleneck"],
+              "tools_dev/fused_resnet_experiment.py:208",
+              launches["fused_bottleneck"] + fused_launches["fused_bottleneck"]
+              + train_launches["fused_bottleneck"] + finetune_launches["fused_bottleneck"]
+              + later_launches("fused_bottleneck"),
               max([r["err"] for r in k5.values()] + [k45_simt["k5"]["max_abs_err"]]),
               k5[(3, bf16)]),
     ]

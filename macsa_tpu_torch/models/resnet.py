@@ -17,18 +17,28 @@ attention grid and `pooled_features` the spatially averaged 2048-d vector.
   tensors are NCHW in `torch.channels_last` memory format: the same bytes
   as NHWC, so the permutes in and out copy nothing.  The convolutions go
   to cuDNN (on the CPU, oneDNN) through `F.conv2d`.
+* The stride-1 identity bottlenecks of a stage run as one K5 launch each
+  (`ops/fused_resnet.fused_bottleneck`) where `takes_k5` says K5 beats
+  the module: on a CUDA tensor, with autograd off for the stage, at a
+  tensor-core shape, a feature map at least `K5_MIN_MAP` wide (stages 1-3
+  at 224^2) and at least `K5_MIN_FRAMES` frames.  Such a stage keeps its
+  activation as the [N*h*w, C] rows of the channels-last tensor from
+  block to block.  Everything else (the stem, every block 0, stage 4, a
+  tagger's single image, any block under autograd, the CPU) runs the
+  modules.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from macsa_tpu_torch.config import ResNetConfig
+from macsa_tpu_torch.ops.fused_resnet import bottleneck_variant, fused_bottleneck
 
 # ImageNet normalization used by every dataset path (vimacsa_dataset.py:25-30)
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -133,6 +143,55 @@ class Bottleneck(nn.Module):
         return F.relu(y + residual)
 
 
+# Where K5 beats the Bottleneck module on an H100 (`chip_smoke.py` phase k5,
+# device time; PERF.md section 6): over the 56 and 224 frames of a serving
+# batch's two passes at feature maps 56, 28 and 14 wide, in both dtypes; not
+# at 7 wide, nor over 16 frames or fewer at 14 wide in f32, where its three
+# blocks a frame leave most of the card idle.
+K5_MIN_MAP = 14
+K5_MIN_FRAMES = 28
+
+
+def takes_k5(device_type: str, autograd: bool, identity: bool, dtype: torch.dtype,
+             n: int, h: int, w: int, c: int, f: int) -> bool:
+    """Whether a bottleneck over [n, c, h, w] of width f runs as K5 rather
+    than as its module: a stride-1 identity block, on a CUDA tensor, with
+    autograd off for it, at a shape K5 takes on the tensor cores, a feature
+    map no narrower than `K5_MIN_MAP` and no fewer than `K5_MIN_FRAMES`
+    frames."""
+    return (identity and device_type == "cuda" and not autograd and n >= K5_MIN_FRAMES
+            and min(h, w) >= K5_MIN_MAP and bottleneck_variant(dtype, h, w, c, f) != "simt")
+
+
+def k5_blocks(config: ResNetConfig, image_size: int, frames: int, device_type: str = "cuda",
+              autograd: bool = False) -> int:
+    """Identity blocks of one forward over `frames` frames of image_size^2
+    that `takes_k5` sends to K5 (44 of ResNet-152's 46 at 224^2 from
+    `K5_MIN_FRAMES` frames up: stages 1-3)."""
+    side = (image_size - 1) // 2 + 1  # the stem's stride-2 conv
+    side = (side - 1) // 2 + 1        # the max-pool
+    count = 0
+    for stage, num_blocks in enumerate(config.stage_sizes):
+        if stage > 0:
+            side = (side - 1) // 2 + 1  # block 0's stride-2 3x3 conv
+        f = config.num_filters * 2 ** stage
+        if takes_k5(device_type, autograd, True, config.torch_dtype, frames, side, side, 4 * f,
+                    f):
+            count += num_blocks - 1
+    return count
+
+
+def block_args(block: Bottleneck) -> Tuple[torch.Tensor, ...]:
+    """A bottleneck's weights and f32 BN affines as K5 takes them:
+    (w1 [C, F], mul1, add1, w2 [9, F, F], mul2, add2, w3 [F, C], mul3, add3),
+    with w2[dy*3 + dx] = conv2.weight[:, :, dy, dx].T."""
+    f = block.conv1.weight.shape[0]
+    w1 = block.conv1.weight[:, :, 0, 0].t()
+    w2 = block.conv2.weight.permute(2, 3, 1, 0).reshape(9, f, f)
+    w3 = block.conv3.weight[:, :, 0, 0].t()
+    return (w1, *block.bn1.affine(), w2, *block.bn2.affine(), w3, *block.bn3.affine())
+
+
 class ResNet(nn.Module):
     """torchvision-compatible ResNet backbone up to layer4 (no fc)."""
 
@@ -156,12 +215,45 @@ class ResNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [N, 3, H, W] normalized (channels-last) -> [N, C, H/32, W/32]."""
+        return self.trunk(x)
+
+    def trunk(self, x: torch.Tensor, k5_stages: Optional[Sequence[int]] = None) -> torch.Tensor:
+        """The forward, with the identity blocks of a stage through K5 where
+        `takes_k5` says so, or, given `k5_stages`, in exactly the listed
+        stages (1-indexed; `models/fused_backbone.run_backbone`)."""
         x = x.to(self.config.torch_dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            blocks = getattr(self, f"layer{stage + 1}")
+            x = blocks[0](x)
+            identity = list(blocks)[1:]
+            if not identity:
+                continue
+            n, c, h, w = x.shape
+            if k5_stages is None:
+                fused = takes_k5(x.device.type, _autograd(x, identity), True, x.dtype, n, h, w,
+                                 c, identity[0].conv1.weight.shape[0])
+            else:
+                fused = stage + 1 in k5_stages
+            if not fused:
+                for block in identity:
+                    x = block(x)
+                continue
+            rows = x.permute(0, 2, 3, 1).reshape(n * h * w, c)  # a view of channels-last
+            for block in identity:
+                rows = fused_bottleneck(rows, *block_args(block), n, h, w)
+            x = rows.reshape(n, h, w, c).permute(0, 3, 1, 2)
         return x
+
+
+def _autograd(x: torch.Tensor, blocks: Sequence[nn.Module]) -> bool:
+    """Whether autograd records `blocks` over x: grad mode on, and x or a
+    parameter or BN tensor of a block requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(t.requires_grad for b in blocks
+                                  for t in (*b.parameters(), *b.buffers()))
 
 
 class VisualFeatures(ResNet):

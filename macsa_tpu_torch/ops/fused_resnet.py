@@ -24,7 +24,10 @@ launch under the kernel's name and under "<name>.<variant>".  Under autograd K4'
 gradient is `fused_matmul_bn_act_backward_reference` (the JAX `_bwd`) and
 K5's is PyTorch autograd through `bottleneck_reference` (the JAX `_bneck_bwd`
 takes `jax.vjp` of `_bottleneck_ref`).  On a CPU tensor they run the
-plain versions, and autograd differentiates those.
+plain versions, and autograd differentiates those.  Without autograd K5
+is the registered op `torch.ops.macsa_tpu_torch.fused_bottleneck`
+(`bottleneck_op`), which an exported program holds; its CPU
+implementation is `bottleneck_reference`.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from macsa_tpu_torch.ops import cuda_lib
+from macsa_tpu_torch.ops.fused_attention import OPS
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -342,6 +346,30 @@ class _FusedBottleneck(torch.autograd.Function):
         return (*(next(grads) if need else None for need in needs), None, None, None)
 
 
+# K5's forward without autograd as a registered op (the library object
+# and the reason for it: `ops/fused_attention.py`)
+OPS.define("fused_bottleneck(Tensor x2, Tensor w1, Tensor mul1, Tensor add1, Tensor w2, "
+           "Tensor mul2, Tensor add2, Tensor w3, Tensor mul3, Tensor add3, int n, int h, "
+           "int w) -> Tensor")
+OPS.impl("fused_bottleneck", bottleneck_reference, "CPU")
+
+
+def _bottleneck_op_cuda(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w):
+    _check_dtype(x2)
+    return _launch_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w)
+
+
+OPS.impl("fused_bottleneck", _bottleneck_op_cuda, "CUDA")
+
+
+@torch.library.register_fake("macsa_tpu_torch::fused_bottleneck")
+def _bottleneck_op_fake(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w):
+    return torch.empty_like(x2)
+
+
+bottleneck_op = torch.ops.macsa_tpu_torch.fused_bottleneck.default
+
+
 def fused_bottleneck(x2: torch.Tensor, w1: torch.Tensor, mul1: torch.Tensor,
                      add1: torch.Tensor, w2: torch.Tensor, mul2: torch.Tensor,
                      add2: torch.Tensor, w3: torch.Tensor, mul3: torch.Tensor,
@@ -355,16 +383,16 @@ def fused_bottleneck(x2: torch.Tensor, w1: torch.Tensor, mul1: torch.Tensor,
     kernel is the one `bottleneck_variant(dtype, h, w, C, F)` names: F in
     64/128/256/512 and C a multiple of 128 (every ResNet stage) run on the
     tensor cores (f32 as three TF32 products), anything else on the CUDA
-    cores."""
+    cores.  Without autograd the call is the registered op `bottleneck_op`."""
     dt = x2.dtype
     weights = (w1.to(dt).contiguous(), w2.to(dt).contiguous(), w3.to(dt).contiguous())
     affines = tuple(t.float().contiguous() for t in (mul1, add1, mul2, add2, mul3, add3))
     args = (x2, weights[0], *affines[0:2], weights[1], *affines[2:4], weights[2], *affines[4:6])
-    if x2.device.type == "cpu":
-        return bottleneck_reference(*args, n, h, w)
-    if x2.device.type != "cuda":
+    if x2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x2.device}")
-    _check_dtype(x2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x2.device.type == "cpu":
+            return bottleneck_reference(*args, n, h, w)
+        _check_dtype(x2)
         return _FusedBottleneck.apply(*args, n, h, w)
-    return _launch_k5(*args, n, h, w)
+    return bottleneck_op(*args, n, h, w)

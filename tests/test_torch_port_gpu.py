@@ -736,7 +736,8 @@ def test_fused_resnet_gradients_match_plain_autograd(cuda):
 def test_fused_backbone_bf16_runs_the_tensor_core_kernel(cuda):
     """A backbone at ResNet widths (64 filters), bf16: every identity block
     of every stage goes through the tensor-core K5, and the features stay
-    no further from the f32 heads than twice the plain bf16 path's."""
+    no further from the f32 module path's than twice the bf16 module
+    path's (`stages=()`: the heads themselves route stage 1 to K5)."""
     kw = dict(stage_sizes=(2, 2, 2, 2), num_filters=64, grid_size=2)
     visual = init_weights(VisualFeatures(config.ResNetConfig(dtype="float32", **kw)),
                           torch.Generator().manual_seed(9)).to(cuda)
@@ -750,8 +751,8 @@ def test_fused_backbone_bf16_runs_the_tensor_core_kernel(cuda):
         fused = fused_backbone.extract_features(visual16, x, rois, stages=(1, 2, 3, 4))
         torch.cuda.synchronize()
         assert dict(cuda_lib.launch_counts) == {"fused_bottleneck": 4, "fused_bottleneck.wgmma": 4}
-        plain = (visual16.grid_features(x), visual16.pooled_features(rois))
-        want = (visual.grid_features(x), visual.pooled_features(rois))
+        plain = fused_backbone.extract_features(visual16, x, rois, stages=())
+        want = fused_backbone.extract_features(visual, x, rois, stages=())
     for i in range(2):
         assert _rel_err(fused[i], want[i]) <= 2 * _rel_err(plain[i], want[i])
 
