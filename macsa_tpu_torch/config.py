@@ -11,6 +11,7 @@ and is on by default here.
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 import torch
 
@@ -74,12 +75,102 @@ class TextEncoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeepseekV2Config:
+    """DeepSeek-V2 decoder used as FCMF's text backbone (`models/deepseek_v2.py`).
+
+    The shape fields of deepseek-ai/DeepSeek-V2-Lite's `config.json` (its
+    `rope_scaling` group spelled out as `rope_*` fields), plus the
+    expert-parallel share this process holds: `ep_size` processes share
+    each MoE layer's `n_routed_experts` experts, and rank `ep_rank` holds
+    `experts_held` of them, `[ep_rank * n / ep_size, (ep_rank + 1) * n / ep_size)`.
+    The router keeps its published width (all `n_routed_experts`).  What
+    V2-Lite fixes and the module builds alone (no q-LoRA, the softmax
+    router's greedy top-k with its weights as they are, every layer after
+    the dense ones a MoE layer) `from_hf` checks."""
+
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    intermediate_size: int = 10944  # the dense layers' SwiGLU width
+    moe_intermediate_size: int = 1408  # one expert's width
+    num_hidden_layers: int = 27
+    first_k_dense_replace: int = 1  # leading dense layers; the rest are MoE
+    num_attention_heads: int = 16
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    rope_factor: float = 40.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+    rms_norm_eps: float = 1e-6
+    ep_size: int = 8
+    ep_rank: int = 0
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.n_routed_experts % self.ep_size or not 0 <= self.ep_rank < self.ep_size:
+            raise ValueError(f"{self.n_routed_experts} experts over ep_size {self.ep_size}, "
+                             f"rank {self.ep_rank}")
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def experts_held(self) -> int:
+        return self.n_routed_experts // self.ep_size
+
+    @property
+    def first_expert(self) -> int:
+        return self.ep_rank * self.experts_held
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.dtype)
+
+    @classmethod
+    def from_hf(cls, hf: dict, **overrides) -> "DeepseekV2Config":
+        """From a `config.json` of `model_type` deepseek_v2; raises where it
+        asks for what the module does not build."""
+        built = {"q_lora_rank": None, "scoring_func": "softmax", "topk_method": "greedy",
+                 "norm_topk_prob": False, "routed_scaling_factor": 1, "moe_layer_freq": 1,
+                 "attention_bias": False, "hidden_act": "silu"}
+        other = {k: hf[k] for k, v in built.items() if k in hf and hf[k] != v}
+        rope = hf.get("rope_scaling") or {}
+        if rope.get("type", "yarn") != "yarn":
+            other["rope_scaling"] = rope
+        if other:
+            raise ValueError(f"not built: {other}")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in hf.items() if k in fields}
+        for key, field in (("factor", "rope_factor"),
+                           ("original_max_position_embeddings", "rope_original_max_position"),
+                           ("beta_fast", "rope_beta_fast"), ("beta_slow", "rope_beta_slow"),
+                           ("mscale", "rope_mscale"), ("mscale_all_dim", "rope_mscale_all_dim")):
+            if key in rope:
+                kw[field] = rope[key]
+        if not rope:
+            kw["rope_factor"] = 1.0
+        kw.update(overrides)
+        return cls(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class FCMFConfig:
     """FCMF encoder / classifier configuration
     (fcmf_framework/fcmf_pretraining.py:14-19, fcmf_multimodal.py:12-18)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
-    text: TextEncoderConfig = dataclasses.field(default_factory=TextEncoderConfig)
+    # the text backbone: RoBERTa (ViSoBERT, XLM-R) or DeepSeek-V2
+    text: Union[TextEncoderConfig, DeepseekV2Config] = dataclasses.field(
+        default_factory=TextEncoderConfig)
     num_imgs: int = 7
     num_roi: int = 4
     alpha: float = 0.7

@@ -24,14 +24,15 @@ the ones `macsa_tpu.train.torch_import.import_fcmf_classifier` reads.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
-from macsa_tpu_torch.config import FCMFConfig, TextEncoderConfig
+from macsa_tpu_torch.config import DeepseekV2Config, FCMFConfig, TextEncoderConfig
 from macsa_tpu_torch.models import layers
 from macsa_tpu_torch.models.box_attention import BoxMultiHeadedAttention
+from macsa_tpu_torch.models.deepseek_v2 import DeepseekV2Encoder
 from macsa_tpu_torch.models.mde import MultimodalDenoisingEncoder
 from macsa_tpu_torch.models.text_encoder import TextEncoder
 from macsa_tpu_torch.utils.logging import span
@@ -44,12 +45,20 @@ def _fold(x: torch.Tensor) -> torch.Tensor:
 
 class FeatureExtractor(nn.Module):
     """The reference's text-backbone wrapper (mm_modeling.py:433-446), which
-    holds the HF model as `cell`: hence the `encoder.bert.cell.*` keys."""
+    holds the HF model as `cell`: hence the `encoder.bert.cell.*` keys.
+    The backbone follows the config's type: RoBERTa (`TextEncoder`) or
+    DeepSeek-V2 (`DeepseekV2Encoder`, with its projection into the fusion's
+    width `out_dim`)."""
 
-    def __init__(self, config: TextEncoderConfig, device=None,
-                 embedding_table: Optional[nn.Parameter] = None):
+    def __init__(self, config: Union[TextEncoderConfig, DeepseekV2Config], device=None,
+                 embedding_table: Optional[nn.Parameter] = None, out_dim: int = 768):
         super().__init__()
-        self.cell = TextEncoder(config, device=device, embedding_table=embedding_table)
+        if isinstance(config, DeepseekV2Config):
+            if embedding_table is not None:
+                raise ValueError("a DeepSeek-V2 backbone shares no token table")
+            self.cell = DeepseekV2Encoder(config, out_dim, device=device)
+        else:
+            self.cell = TextEncoder(config, device=device, embedding_table=embedding_table)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None, rng=None):
         return self.cell(input_ids, token_type_ids, attention_mask, rng)
@@ -66,7 +75,7 @@ class FCMFEncoder(nn.Module):
         mc = config.model
         h, dt = mc.hidden_size, mc.torch_dtype
         self.bert = FeatureExtractor(config.text, device=device,
-                                     embedding_table=embedding_table)
+                                     embedding_table=embedding_table, out_dim=h)
         self.vismap2text = layers.Dense(config.visual_feat_dim, h, dt, device=device)
         self.roimap2text = layers.Dense(config.visual_feat_dim, h, dt, device=device)
         self.box_head = BoxMultiHeadedAttention(config.box_heads, h, dt,

@@ -78,7 +78,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", type=str, required=True)
     p.add_argument("--image_dir", type=str, required=True)
     p.add_argument("--output_dir", type=str, required=True)
-    p.add_argument("--pretrained_hf_model", type=str, default="uitnlp/visobert")
+    p.add_argument("--pretrained_hf_model", type=str, default="uitnlp/visobert",
+                   help="local model directory: its config.json picks the text backbone "
+                        "(RoBERTa, or DeepSeek-V2 where model_type is deepseek_v2: this "
+                        "process then holds rank 0's 8 of every MoE layer's routed experts, "
+                        "as in an 8-way expert-parallel deployment), its tokenizer and "
+                        "pytorch_model.bin its vocabulary and weights.  DeepSeek-V2's "
+                        "published weights (safetensors) and tokenizer are not read yet: "
+                        "the backbone keeps its random init")
     p.add_argument("--resnet_weights", type=str, default=None,
                    help="torchvision resnet152 state-dict file")
     p.add_argument("--num_imgs", type=int, default=7)

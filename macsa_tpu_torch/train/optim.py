@@ -3,8 +3,8 @@
 The reference recipe (run_multimodal_fcmf.py:247-314):
 * AdamW with a no-decay group for biases and normalization weights,
   decided by module type as the JAX package decides by leaf name (`bias`,
-  `out_bias`, `scale`): any bias, and the weight of any `LayerNormTF` or
-  `FrozenBatchNorm`, whatever the module is called,
+  `out_bias`, `scale`): any bias, and the weight of any `LayerNormTF`,
+  `FrozenBatchNorm` or DeepSeek-V2 `RMSNorm`, whatever the module is called,
 * dual learning rates: the classifier head (`classifier`, `text_pooler`)
   gets `classifier_head_learning_rate`, the rest the encoder rate,
 * HF-style linear warmup, counted in optimizer updates,
@@ -38,6 +38,7 @@ from typing import Callable, Iterable, Optional, Sequence, Union
 import torch
 from torch import nn
 
+from macsa_tpu_torch.models.deepseek_v2 import RMSNorm
 from macsa_tpu_torch.models.layers import LayerNormTF
 from macsa_tpu_torch.models.resnet import FrozenBatchNorm
 from macsa_tpu_torch.parallel import sharding
@@ -46,7 +47,7 @@ from macsa_tpu_torch.utils.logging import span
 
 Schedule = Callable[[int], float]
 NO_DECAY_LEAVES = ("bias", "out_bias")  # run_multimodal_fcmf.py:249
-NORM_MODULES = (LayerNormTF, FrozenBatchNorm)  # their `weight` is JAX's `scale`
+NORM_MODULES = (LayerNormTF, FrozenBatchNorm, RMSNorm)  # their `weight` is JAX's `scale`
 HEAD_KEYWORDS = ("classifier", "text_pooler")  # run_multimodal_fcmf.py:252-286
 
 

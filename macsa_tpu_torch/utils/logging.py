@@ -219,6 +219,8 @@ class SpanStore:
                 v = s.device_ms()
             else:
                 v = s.counts.get(of)
+                if isinstance(v, torch.Tensor):  # a device count, read once the stretch is done
+                    v = float(v)
             if v is None:
                 return None
             by_step[s.step] = by_step.get(s.step, 0) + v
@@ -242,7 +244,9 @@ def span(name: str, step: bool = False, device: bool = False):
     (`train_step`, `eval_step`); `device=True` also records two CUDA timing
     events where CUDA is in use, on the spans whose card time is read
     (`h2d`, `visual`, `eval_step`: each event is host time while a profiler
-    records, and the card idles whenever it waits on the host).  Under `torch.compile` or `torch.export` it is a
+    records, and the card idles whenever it waits on the host).  A count
+    may be a 0-d device tensor (the MoE layer's `rows`), so that the block
+    never waits for the card: `SpanStore.per_step` reads it afterwards.  Under `torch.compile` or `torch.export` it is a
     `nullcontext`: the traced graph holds no profiler operation."""
     if not _autograd_profiler._is_profiler_enabled:
         if SPANS.live:
