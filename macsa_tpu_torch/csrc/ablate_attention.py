@@ -233,7 +233,8 @@ def main(argv: list) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_all(Path(tmp), cuda_lib.CSRC / source, (fwd_entry, bwd_entry), variants)
         for l, (rate_args, rate) in itertools.product(
-                (170, 256), (((0, 0, 1.0, 0), 0.0), ((1, 429496730, 1.0 / 0.9, 7), 0.1))):
+                (170, 256), (((0, 0, 1.0, 0, None), 0.0),
+                             ((1, 429496730, 1.0 / 0.9, 7, None), 0.1))):
             q, k, v, gout = (torch.randn(b, l, h * 64, device=dev, generator=g).to(dtype)
                              for _ in range(4))
             mask = torch.zeros(b, l, device=dev)

@@ -28,17 +28,26 @@ struct Dropout {
   uint32_t threshold;  // keep iff bits >= threshold
   float inv_keep;     // 1 / (1 - rate), rounded to f32
   uint32_t seed;
+  // where not NULL, the seed is this device word instead: a CUDA graph
+  // replays the launch with the word it finds there, written before each
+  // replay, where a by-value seed would stay the one captured
+  const uint32_t* seed_word;
+  __device__ __forceinline__ uint32_t key_seed() const {
+    return seed_word != nullptr ? __ldg(seed_word) : seed;
+  }
   __device__ __forceinline__ bool keep(uint32_t key, int j) const {
     return mix32(key ^ static_cast<uint32_t>(j)) >= threshold;
   }
 };
 
-inline Dropout make_dropout(int on, unsigned threshold, float inv_keep, unsigned seed) {
+inline Dropout make_dropout(int on, unsigned threshold, float inv_keep, unsigned seed,
+                            const unsigned* seed_word) {
   Dropout d;
   d.on = on;
   d.threshold = threshold;
   d.inv_keep = inv_keep;
   d.seed = seed;
+  d.seed_word = seed_word;
   return d;
 }
 

@@ -47,10 +47,14 @@ def build(csrc: Path, out: Path) -> ctypes.CDLL:
             *map(str, objects)]
     cuda_lib._check_build(link, subprocess.run(link, capture_output=True, text=True))
     lib = ctypes.CDLL(str(out))
+    # a tree from before the entry points took a seed word passes none
+    lib.seed_word = "seed_word" in (csrc / "attention_dropout.cuh").read_text()
     for name in ENTRIES:
         if hasattr(lib, name):
             fn = getattr(lib, name)
-            fn.argtypes, fn.restype = cuda_lib._SIGNATURES[name], ctypes.c_int
+            sig = cuda_lib._SIGNATURES[name]
+            fn.argtypes = sig if lib.seed_word else sig[:-2] + sig[-1:]
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -58,6 +62,7 @@ def launchers(lib, dtype, b: int, l: int, h: int, tensors: dict, rate_args: tupl
     """(variant, forward, backward) of `lib` for `dtype` at head width 64."""
     t = tensors
     ptr = lambda *names: [t[n].data_ptr() for n in names]
+    rate_args = rate_args if lib.seed_word else rate_args[:-1]
     fwd_in, bwd_in = ptr("q", "k", "v", "mask", "out", "lse"), ptr(
         "q", "k", "v", "mask", "g", "lse", "row_term", "dq", "dk", "dv")
     if dtype == torch.bfloat16:
@@ -101,7 +106,8 @@ def main(argv: list) -> int:
                 "this": build(cuda_lib.CSRC, Path(tmp) / "this.so")}
         for l in (170, 256):
             for dtype in (torch.bfloat16, torch.float32):
-                for rate_args, rate in (((0, 0, 1.0, 0), 0.0), ((1, 429496730, 1.0 / 0.9, 7), 0.1)):
+                for rate_args, rate in (((0, 0, 1.0, 0, None), 0.0),
+                                        ((1, 429496730, 1.0 / 0.9, 7, None), 0.1)):
                     t = {n: torch.randn(b, l, h * 64, device=dev, generator=g).to(dtype)
                          for n in ("q", "k", "v", "g")}
                     t["mask"] = torch.zeros(b, l, device=dev)

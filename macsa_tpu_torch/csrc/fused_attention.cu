@@ -219,7 +219,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    key[r] = drop.on ? row_key(drop.seed, b, h, q0 + row0 + r) : 0u;
+    key[r] = drop.on ? row_key(drop.key_seed(), b, h, q0 + row0 + r) : 0u;
 #pragma unroll
     for (int t = 0; t < kDPL; ++t) acc[r][t] = 0.f;
   }
@@ -321,7 +321,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int i = q0 + row0 + r;
     row_lse[r] = i < L ? lse[g.stat + i] : 0.f;
     rsum[r] = 0.f;
-    key[r] = drop.on ? row_key(drop.seed, b, h, i) : 0u;
+    key[r] = drop.on ? row_key(drop.key_seed(), b, h, i) : 0u;
   }
 
   // p and dp of this lane's key for the warp's rows
@@ -436,7 +436,7 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int i = i0 + lane;  // this lane's query
     const bool ivalid = i < L;
     const float lse_i = lse_s[lane], rt_i = rt_s[lane];
-    const uint32_t key = drop.on ? row_key(drop.seed, b, h, i) : 0u;
+    const uint32_t key = drop.on ? row_key(drop.key_seed(), b, h, i) : 0u;
     float s[kRowsPerWarp], dpd[kRowsPerWarp];
     dot_rows<D>(s, ks, qt, row0, lane);
     dot_rows<D>(dpd, vs, gt, row0, lane);
@@ -509,15 +509,18 @@ bool bad_geometry(int B, int L, int H) {
 // q/k/v/out: [B, L, H*D] contiguous, D = 32, f32 (bf16 == 0) or bf16 (bf16 == 1);
 // mask: [B, L] f32; lse: [B, H, L] f32, or NULL when no backward follows.
 // Dropout when `dropout` != 0: keep iff bits >= keep_threshold, kept probs
-// scaled by inv_keep.  Returns cudaGetLastError() after the launch.
+// scaled by inv_keep; the hash's seed is the device word at `seed_word`
+// where that is not NULL (a CUDA graph's replays read it there), else
+// `seed`.  Returns cudaGetLastError() after the launch.
 extern "C" int macsa_fused_attention_fwd(const void* q, const void* k, const void* v,
                                          const void* mask, void* out, void* lse, int B,
                                          int L, int H, int D, int bf16, int dropout,
                                          unsigned keep_threshold, float inv_keep,
-                                         unsigned seed, void* stream) {
+                                         unsigned seed, const unsigned* seed_word, void* stream) {
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
+  const Dropout drop =
+      attention::make_dropout(dropout, keep_threshold, inv_keep, seed, seed_word);
   if (D != 32) return cudaErrorInvalidValue;
   bf16 ? launch_fwd<__nv_bfloat16, 32>(q, k, v, mask, out, lse, B, L, H, drop, s)
        : launch_fwd<float, 32>(q, k, v, mask, out, lse, B, L, H, drop, s);
@@ -532,10 +535,11 @@ extern "C" int macsa_fused_attention_bwd(const void* q, const void* k, const voi
                                          void* row_term, void* dq, void* dk, void* dv, int B,
                                          int L, int H, int D, int bf16, int dropout,
                                          unsigned keep_threshold, float inv_keep,
-                                         unsigned seed, void* stream) {
+                                         unsigned seed, const unsigned* seed_word, void* stream) {
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
+  const Dropout drop =
+      attention::make_dropout(dropout, keep_threshold, inv_keep, seed, seed_word);
   if (D != 32) return cudaErrorInvalidValue;
   return bf16 ? launch_bwd<__nv_bfloat16, 32>(q, k, v, mask, g, lse, row_term, dq, dk, dv, B,
                                               L, H, drop, s)

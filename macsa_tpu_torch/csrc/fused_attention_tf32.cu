@@ -304,7 +304,7 @@ attention_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   for (int r = 0; r < 2; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
-    key[r] = drop.on ? row_key(drop.seed, b, h, q0 + m0 + acc_row(lane, 2 * r)) : 0u;
+    key[r] = drop.on ? row_key(drop.key_seed(), b, h, q0 + m0 + acc_row(lane, 2 * r)) : 0u;
   }
   zero(o);
 
@@ -415,7 +415,7 @@ attention_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restric
   for (int r = 0; r < 2; ++r) {
     const int i = q0 + m0 + acc_row(lane, 2 * r);
     row_lse[r] = i < L ? lse[g.stat + i] : 0.f;
-    key[r] = drop.on ? row_key(drop.seed, b, h, i) : 0u;
+    key[r] = drop.on ? row_key(drop.key_seed(), b, h, i) : 0u;
   }
   zero(acc);
 
@@ -506,7 +506,7 @@ attention_bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restr
       const int i = i0 + threadIdx.x;
       lse_vals(s)[threadIdx.x] = i < L ? lse[g.stat + i] : 0.f;
       term_vals(s)[threadIdx.x] = i < L ? row_term[g.stat + i] : 0.f;
-      hash_vals(s)[threadIdx.x] = drop.on ? row_key(drop.seed, b, h, i) : 0u;
+      hash_vals(s)[threadIdx.x] = drop.on ? row_key(drop.key_seed(), b, h, i) : 0u;
     }
   };
 
@@ -601,7 +601,8 @@ extern "C" int macsa_fused_attention_fwd_tf32x3(const void* q, const void* k, co
                                                 const void* mask, void* out, void* lse, int B,
                                                 int L, int H, int dropout,
                                                 unsigned keep_threshold, float inv_keep,
-                                                unsigned seed, void* stream) {
+                                                unsigned seed, const unsigned* seed_word,
+                                                void* stream) {
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem(attention_fwd_tf32_kernel, kFwdSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -610,7 +611,7 @@ extern "C" int macsa_fused_attention_fwd_tf32x3(const void* q, const void* k, co
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(lse), L, H,
       1.0f / sqrtf(static_cast<float>(kD)),
-      attention::make_dropout(dropout, keep_threshold, inv_keep, seed));
+      attention::make_dropout(dropout, keep_threshold, inv_keep, seed, seed_word));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -623,14 +624,16 @@ extern "C" int macsa_fused_attention_bwd_tf32x3(const void* q, const void* k, co
                                                 const void* lse, void* row_term, void* dq,
                                                 void* dk, void* dv, int B, int L, int H,
                                                 int dropout, unsigned keep_threshold,
-                                                float inv_keep, unsigned seed, void* stream) {
+                                                float inv_keep, unsigned seed,
+                                                const unsigned* seed_word, void* stream) {
   if (bad_geometry(B, L, H) || row_term == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(attention_bwd_dq_tf32_kernel, kDqSmem);
   if (err == cudaSuccess) err = allow_smem(attention_bwd_dkdv_tf32_kernel, kDkdvSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((L + kTile - 1) / kTile, H, B);
   const float scale = 1.0f / sqrtf(static_cast<float>(kD));
-  const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
+  const Dropout drop =
+      attention::make_dropout(dropout, keep_threshold, inv_keep, seed, seed_word);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k);
   const float *vp = static_cast<const float*>(v), *gp = static_cast<const float*>(g);

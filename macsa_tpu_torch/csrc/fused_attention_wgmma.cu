@@ -337,8 +337,8 @@ attention_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   __syncthreads();  // Q, K and the mask row are there; V may still be in flight
 
   ForwardState st;
-  const uint32_t key_lo = drop.on ? row_key(drop.seed, b, h, i_lo) : 0u;
-  const uint32_t key_hi = drop.on ? row_key(drop.seed, b, h, i_hi) : 0u;
+  const uint32_t key_lo = drop.on ? row_key(drop.key_seed(), b, h, i_lo) : 0u;
+  const uint32_t key_hi = drop.on ? row_key(drop.key_seed(), b, h, i_hi) : 0u;
   forward_pass<NK>(st, q_addr, k_addr, v_addr, mrow, 0, scale, drop, key_lo, key_hi, col2, [] {
     cp_async_wait<0>();
     fence_async_proxy();
@@ -396,8 +396,8 @@ attention_fwd_ring_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 
   ForwardState st;
-  const uint32_t key_lo = drop.on ? row_key(drop.seed, b, h, i_lo) : 0u;
-  const uint32_t key_hi = drop.on ? row_key(drop.seed, b, h, i_hi) : 0u;
+  const uint32_t key_lo = drop.on ? row_key(drop.key_seed(), b, h, i_lo) : 0u;
+  const uint32_t key_hi = drop.on ? row_key(drop.key_seed(), b, h, i_hi) : 0u;
   for (int t = 0; t < passes; ++t) {
     const int stage = t % kFwdStages, ahead = t + kFwdStages - 1;
     ring_wait<kFwdStages>();
@@ -612,7 +612,7 @@ attention_bwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     const bool ok = i < L;
     lse_s[i] = ok ? lse[stat + i] : INFINITY;  // p = exp(. - inf) = 0 for a query >= L
     mrow[i] = ok ? mask[static_cast<long long>(b) * L + i] : -INFINITY;
-    rkey[i] = drop.on ? row_key(drop.seed, b, h, i) : 0u;
+    rkey[i] = drop.on ? row_key(drop.key_seed(), b, h, i) : 0u;
   }
   cp_async_wait<0>();
   fence_async_proxy();
@@ -735,8 +735,8 @@ attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float lse_lo = i_lo < L ? lse[stat + i_lo] : INFINITY;  // p = 0 for a query >= L
   const float lse_hi = i_hi < L ? lse[stat + i_hi] : INFINITY;
-  const uint32_t key_lo = drop.on ? row_key(drop.seed, b, h, i_lo) : 0u;
-  const uint32_t key_hi = drop.on ? row_key(drop.seed, b, h, i_hi) : 0u;
+  const uint32_t key_lo = drop.on ? row_key(drop.key_seed(), b, h, i_lo) : 0u;
+  const uint32_t key_hi = drop.on ? row_key(drop.key_seed(), b, h, i_hi) : 0u;
 
   float term_lo = 0.f, term_hi = 0.f, acc_q[32];
 #pragma unroll
@@ -816,7 +816,7 @@ attention_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     vec[(vlse ? 0 : kTile) + vq] = x;
     if (vlse)
       reinterpret_cast<uint32_t*>(vec)[2 * kTile + vq] =
-          drop.on ? row_key(drop.seed, b, h, t * kTile + vq) : 0u;
+          drop.on ? row_key(drop.key_seed(), b, h, t * kTile + vq) : 0u;
   };
   auto load_tile = [&](int t) {  // step t's copies, one group
     if (t < tiles) {
@@ -908,10 +908,12 @@ extern "C" int macsa_fused_attention_fwd_wgmma(const void* q, const void* k, con
                                                const void* mask, void* out, void* lse, int B,
                                                int L, int H, int dropout,
                                                unsigned keep_threshold, float inv_keep,
-                                               unsigned seed, void* stream) {
+                                               unsigned seed, const unsigned* seed_word,
+                                               void* stream) {
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
+  const Dropout drop =
+      attention::make_dropout(dropout, keep_threshold, inv_keep, seed, seed_word);
   if (L <= 64) return launch_fwd<64>(q, k, v, mask, out, lse, B, L, H, drop, s);
   if (L <= 128) return launch_fwd<128>(q, k, v, mask, out, lse, B, L, H, drop, s);
   if (L <= 192) return launch_fwd<192>(q, k, v, mask, out, lse, B, L, H, drop, s);
@@ -928,9 +930,11 @@ extern "C" int macsa_fused_attention_bwd_wgmma(const void* q, const void* k, con
                                                void* row_term, void* dq, void* dk, void* dv,
                                                int B, int L, int H, int dropout,
                                                unsigned keep_threshold, float inv_keep,
-                                               unsigned seed, void* stream) {
+                                               unsigned seed, const unsigned* seed_word,
+                                               void* stream) {
   if (bad_geometry(B, L, H)) return cudaErrorInvalidValue;
-  const Dropout drop = attention::make_dropout(dropout, keep_threshold, inv_keep, seed);
+  const Dropout drop =
+      attention::make_dropout(dropout, keep_threshold, inv_keep, seed, seed_word);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (L > kBwdRows) {
     if (row_term == nullptr) return cudaErrorInvalidValue;
@@ -954,9 +958,11 @@ extern "C" int macsa_fused_attention_bwd_wgmma(const void* q, const void* k, con
 extern "C" int macsa_fused_attention_bwd_wgmma_streamed(
     const void* q, const void* k, const void* v, const void* mask, const void* g,
     const void* lse, void* row_term, void* dq, void* dk, void* dv, int B, int L, int H,
-    int dropout, unsigned keep_threshold, float inv_keep, unsigned seed, void* stream) {
+    int dropout, unsigned keep_threshold, float inv_keep, unsigned seed,
+    const unsigned* seed_word, void* stream) {
   if (bad_geometry(B, L, H) || row_term == nullptr) return cudaErrorInvalidValue;
   return launch_bwd_streamed(q, k, v, mask, g, lse, row_term, dq, dk, dv, B, L, H,
-                             attention::make_dropout(dropout, keep_threshold, inv_keep, seed),
+                             attention::make_dropout(dropout, keep_threshold, inv_keep, seed,
+                                                     seed_word),
                              static_cast<cudaStream_t>(stream));
 }

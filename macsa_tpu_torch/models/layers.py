@@ -53,6 +53,17 @@ class DropoutRng:
     device: torch.Generator
     host: torch.Generator
     dp_index: int = 0
+    # while a step is captured into a CUDA graph: the device words that
+    # hold K1's seeds on its replays (`train/step_graph.SeedWords`)
+    seed_words: Optional[object] = None
+
+    @staticmethod
+    def step_seeds(seed: int, step: int, dp_index: int = 0) -> tuple:
+        """(device generator's seed, host generator's seed) of (seed, step,
+        dp_index): what `for_step` seeds its generators with."""
+        entropy = [seed, step] if dp_index == 0 else [seed, step, dp_index]
+        dev_seed, host_seed = np.random.SeedSequence(entropy).generate_state(2)
+        return int(dev_seed), int(host_seed)
 
     @classmethod
     def for_step(cls, seed: int, step: int, device, dp_index: int = 0) -> "DropoutRng":
@@ -60,16 +71,22 @@ class DropoutRng:
         step into its key (`jax.random.fold_in(rng, state.step)`), and from
         `dp_index` where it is not 0 (rank 0, and a world of one, draw what
         (seed, step) alone gives)."""
-        entropy = [seed, step] if dp_index == 0 else [seed, step, dp_index]
-        dev_seed, host_seed = np.random.SeedSequence(entropy).generate_state(2)
-        return cls(torch.Generator(torch.device(device)).manual_seed(int(dev_seed)),
-                   torch.Generator().manual_seed(int(host_seed)), dp_index)
+        dev_seed, host_seed = cls.step_seeds(seed, step, dp_index)
+        return cls(torch.Generator(torch.device(device)).manual_seed(dev_seed),
+                   torch.Generator().manual_seed(host_seed), dp_index)
 
     def keep_mask(self, shape, rate: float, device) -> torch.Tensor:
         return torch.rand(shape, generator=self.device, device=device) >= rate
 
     def kernel_seed(self) -> int:
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.host))
+
+    def attention_seed(self, offset: int = 0):
+        """The seed of the next K1 call: the next host draw plus `offset`;
+        while a step is captured (`seed_words`), the device word that holds
+        it on every replay (K1 reads its seed there)."""
+        seed = self.kernel_seed() + offset
+        return seed if self.seed_words is None else self.seed_words.word(seed, offset)
 
 
 def dropout(x: torch.Tensor, rate: float, rng: Optional[DropoutRng]) -> torch.Tensor:
@@ -224,7 +241,7 @@ class BertSelfAttention(nn.Module):
                 and additive_mask.shape[2] == 1
                 and qr.shape[1] == kr.shape[1] and qr.shape[1] >= 32):
             mask_row = additive_mask[:, 0, 0, :].float().contiguous()
-            seed = rng.kernel_seed() + rng.dp_index * mp + mp_index if rate > 0.0 else 0
+            seed = rng.attention_seed(rng.dp_index * mp + mp_index) if rate > 0.0 else 0
             return fused_self_attention(qr, kr, vr, mask_row, n, rate, seed)
         keep = None
         if rate > 0.0:

@@ -41,25 +41,29 @@ _U = ctypes.c_uint
 # c_void_p: an undeclared pointer would be cut to 32 bits.
 _SIGNATURES = {
     # q, k, v, mask, out, lse (or NULL), B, L, H, D, bf16,
-    # dropout, keep_threshold, inv_keep, seed, stream
+    # dropout, keep_threshold, inv_keep, seed, seed_word (or NULL), stream
     "macsa_fused_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _U, _F, _U, _P],
+                                  _I, _U, _F, _U, _P, _P],
     # q, k, v, mask, g, lse, row_term, dq, dk, dv, B, L, H, D, bf16,
-    # dropout, keep_threshold, inv_keep, seed, stream
+    # dropout, keep_threshold, inv_keep, seed, seed_word (or NULL), stream
     "macsa_fused_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _U, _F, _U, _P],
+                                  _I, _I, _I, _U, _F, _U, _P, _P],
     # the bf16 tensor-core variants (csrc/fused_attention_wgmma.cu), head width 64
-    # q, k, v, mask, out, lse (or NULL), B, L, H, dropout, keep_threshold, inv_keep, seed, stream
-    "macsa_fused_attention_fwd_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _U, _P],
+    # q, k, v, mask, out, lse (or NULL), B, L, H, dropout, keep_threshold, inv_keep, seed,
+    # seed_word (or NULL), stream
+    "macsa_fused_attention_fwd_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _U,
+                                        _P, _P],
     # q, k, v, mask, g, lse, row_term (or NULL up to 192 rows), dq, dk, dv, B, L, H,
-    # dropout, keep_threshold, inv_keep, seed, stream
-    "macsa_fused_attention_bwd_wgmma": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P],
+    # dropout, keep_threshold, inv_keep, seed, seed_word (or NULL), stream
+    "macsa_fused_attention_bwd_wgmma": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P, _P],
     # the same arguments: the two streaming launches at any length (measurement only)
-    "macsa_fused_attention_bwd_wgmma_streamed": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P],
+    "macsa_fused_attention_bwd_wgmma_streamed": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P,
+                                                             _P],
     # the f32 tensor-core variants (csrc/fused_attention_tf32.cu), head width 64: the
     # same arguments as the bf16 ones (the backward's row_term is required)
-    "macsa_fused_attention_fwd_tf32x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _U, _P],
-    "macsa_fused_attention_bwd_tf32x3": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P],
+    "macsa_fused_attention_fwd_tf32x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _U,
+                                         _P, _P],
+    "macsa_fused_attention_bwd_tf32x3": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P, _P],
     # words, out, frames, words_per_frame, bf16, inv255, mean[3], inv_std[3], stream
     "macsa_unpack_normalize": [_P, _P, _LL, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P],
     # bytes, out, n, bf16, inv255, mean[3], inv_std[3], stream

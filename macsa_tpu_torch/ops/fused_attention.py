@@ -13,6 +13,10 @@ The dropout mask is a keyed 32-bit hash of (seed, b, h, i, j) alone
 computes an element, and the plain PyTorch versions reproduce them exactly.
 It is not the TPU's PRNG stream: only the keep rate and independence carry
 over, as between the TPU kernel and `jax.random` in the JAX package.
+On a CUDA tensor the seed may also be a one-word int32 device tensor (a
+seed word, `is_seed_word`): the kernels read the seed there, so a CUDA
+graph that captured the call replays it with the word written before each
+replay (`train/step_graph.py`), where an int would stay the one captured.
 
 On a CUDA tensor `fused_self_attention` launches the hand-written kernels:
 the forward, and under autograd the backward, each under the tensors'
@@ -248,11 +252,27 @@ def _count(name: str, variant: str) -> None:
     cuda_lib.launch_counts[f"{name}.{variant}"] += 1
 
 
-def _dropout_args(rate: float, seed: int):
-    """(dropout on, keep threshold, 1/(1-rate), seed as uint32) for the C calls."""
+def is_seed_word(seed) -> bool:
+    """Whether `seed` is a device word (a one-element int32 tensor) rather than an int."""
+    return isinstance(seed, torch.Tensor)
+
+
+def _check_seed_word(seed, q) -> None:
+    if is_seed_word(seed) and (seed.dtype != torch.int32 or seed.numel() != 1
+                               or seed.device != q.device):
+        raise ValueError(f"a seed word must be one int32 element on {q.device}, got "
+                         f"{seed.dtype} {tuple(seed.shape)} on {seed.device}")
+
+
+def _dropout_args(rate: float, seed):
+    """(dropout on, keep threshold, 1/(1-rate), seed as uint32, the seed
+    word's address or None) for the C calls: a seed word is read by the
+    kernel, an int passed by value."""
     if rate == 0.0:
-        return 0, 0, 1.0, 0
-    return 1, keep_threshold(rate), _inv_keep(rate), int(seed) & _M32
+        return 0, 0, 1.0, 0, None
+    if is_seed_word(seed):
+        return 1, keep_threshold(rate), _inv_keep(rate), 0, seed.data_ptr()
+    return 1, keep_threshold(rate), _inv_keep(rate), int(seed) & _M32, None
 
 
 @cuda_lib.on_tensor_device
@@ -392,17 +412,26 @@ def fused_self_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q/k/v: [B, L, H*d] projection outputs (not head-split); mask: [B, L]
     additive f32 row (0 keep, large negative drop); `seed` keys the dropout
-    mask (ignored at rate 0).  Returns [B, L, H*d] in the input dtype,
-    merged heads, ready for the output projection.  Gradients flow to
-    q/k/v, through K1's backward kernel on CUDA tensors; without autograd
-    the call is the registered op `attention_op`."""
+    mask (ignored at rate 0): an int, or on CUDA tensors a seed word
+    (`is_seed_word`).  Returns [B, L, H*d] in the input dtype, merged
+    heads, ready for the output projection.  Gradients flow to q/k/v,
+    through K1's backward kernel on CUDA tensors; without autograd the
+    call is the registered op `attention_op` (an int seed) or the forward
+    kernel's launch (a seed word)."""
     _check_rate(rate)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    if is_seed_word(seed):
+        if q.device.type != "cuda":
+            raise ValueError("a seed word takes CUDA tensors: the plain version keys on an int")
+        _check_cuda_args(q, k, v, mask, num_heads)
+        _check_seed_word(seed, q)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if q.device.type == "cpu":
             return attention_reference(q, k, v, mask, num_heads, rate, seed)
         _check_cuda_args(q, k, v, mask, num_heads)
         return _FusedAttention.apply(q, k, v, mask, num_heads, rate, seed)
+    if is_seed_word(seed):
+        return _launch_fwd(q, k, v, mask, num_heads, rate, seed, with_lse=False)[0]
     return attention_op(q, k, v, mask, num_heads, rate, int(seed))

@@ -136,6 +136,8 @@ class AdamW:
         self.max_grad_norm = max_grad_norm
         self.accumulate_steps = accumulate_steps
         self.updates = 0  # optimizer updates, the schedules' count
+        self.capturable = False  # `make_capturable`
+        self.loads = 0  # `load_state_dict` calls: a captured update holds the state's addresses
         self._micro = 0
         self._acc: Optional[list] = None
 
@@ -174,6 +176,47 @@ class AdamW:
         with span("optimizer"):
             self._step()
 
+    def make_capturable(self) -> None:
+        """From now on run `torch.optim.AdamW` with `capturable=True`, so
+        that a CUDA graph can capture `step` (`train/step_graph.py`): each
+        group's rate is a one-element f32 device tensor, written before
+        every update (`set_rates`), and the step counts and bias
+        corrections live on the card.  The update is the same AdamW; its
+        bias corrections are f32 products on the card where the default
+        path takes them as host doubles."""
+        self.capturable = True
+        self._apply_mode()
+        # the eager steps of a capturable optimizer are intended here: the
+        # first step of each batch shape runs eagerly before its capture
+        self.optimizer._warned_capturable_if_run_uncaptured = True
+
+    def _apply_mode(self) -> None:
+        """Bring the groups' rates and the step counts to this optimizer's
+        mode (after `make_capturable`, and after a load)."""
+        for group in self.optimizer.param_groups:
+            group["capturable"] = self.capturable
+            lr, device = group["lr"], group["params"][0].device
+            if self.capturable and not isinstance(lr, torch.Tensor):
+                group["lr"] = torch.tensor(float(lr), dtype=torch.float32, device=device)
+            elif not self.capturable and isinstance(lr, torch.Tensor):
+                group["lr"] = float(lr)
+            for p in group["params"]:
+                state = self.optimizer.state.get(p)
+                if state and "step" in state:
+                    state["step"] = state["step"].to(p.device if self.capturable else "cpu",
+                                                     torch.float32)
+
+    def set_rates(self) -> None:
+        """Each group's rate of update `self.updates`, from its schedule;
+        written into the group's device tensor where capturable (a fill on
+        the stream: nothing waits)."""
+        for group in self.optimizer.param_groups:
+            lr = self.schedules[group["part"]](self.updates)
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr)
+            else:
+                group["lr"] = lr
+
     def _step(self) -> None:
         grads = _grads(self.params)
         if self.accumulate_steps > 1:
@@ -194,8 +237,9 @@ class AdamW:
         all_reduce_gradients(grads)
         if self.max_grad_norm is not None:
             clip_by_global_norm_(grads, self.max_grad_norm, self.params)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedules[group["part"]](self.updates)
+        # a captured update reads the rates its replays are handed
+        if not (self.capturable and torch.cuda.is_current_stream_capturing()):
+            self.set_rates()
         self.optimizer.step()
         self.updates += 1
 
@@ -212,6 +256,8 @@ class AdamW:
 
     def load_state_dict(self, state: dict) -> None:
         self.optimizer.load_state_dict(state["optimizer"])
+        self._apply_mode()
+        self.loads += 1
         self.updates, self._micro = int(state["updates"]), int(state["micro"])
         self._acc = None if state["acc"] is None else [
             a.to(p.device, p.dtype) for a, p in zip(state["acc"], self.params)]

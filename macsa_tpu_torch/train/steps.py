@@ -24,6 +24,7 @@ from macsa_tpu_torch.models.seq2seq import FCMFSeq2Seq, seq2seq_loss, tied_head_
 from macsa_tpu_torch.ops.image_prep import device_normalize
 from macsa_tpu_torch.parallel import mesh
 from macsa_tpu_torch.train.state import TrainState
+from macsa_tpu_torch.train.step_graph import TrainStep
 from macsa_tpu_torch.utils.logging import span
 
 Batch = Dict[str, torch.Tensor]
@@ -103,21 +104,19 @@ def make_finetune_train_step(state: TrainState, dp_index: Optional[int] = None) 
     `dp_index` defaults to `parallel.mesh.dp_index()`), the loss, its
     backward (K1's backward kernel in the text encoder; through the ResNet
     too when `state.fine_tune_cnn`), and one optimizer step.  Nothing in it
-    waits on the device."""
+    waits on the device.  It runs eagerly or as a CUDA graph's replay, as
+    `step_graph.graph_mode` decides."""
     dp_index = mesh.dp_index() if dp_index is None else dp_index
 
-    def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
-        with span("train_step", step=True):
-            state.model.train()
-            rng = DropoutRng.for_step(seed, state.step, batch["input_ids"].device, dp_index)
-            loss, acc = finetune_loss(state.model, state.visual, batch, rng,
-                                      state.fine_tune_cnn)
-            with span("backward"):
-                loss.backward()
-            state.apply_gradients()
-            return {"loss": loss.detach(), "accuracy": acc}
+    def body(batch: Batch, rng: DropoutRng) -> Dict[str, torch.Tensor]:
+        state.model.train()
+        loss, acc = finetune_loss(state.model, state.visual, batch, rng, state.fine_tune_cnn)
+        with span("backward"):
+            loss.backward()
+        state.apply_gradients()
+        return {"loss": loss.detach(), "accuracy": acc}
 
-    return step
+    return TrainStep(state, body, dp_index)
 
 
 def make_finetune_eval_step(model: FCMF, visual: VisualFeatures) -> Callable:
@@ -195,19 +194,17 @@ def make_pretrain_train_step(state: TrainState, vocab_chunk: int = 0,
     `make_pretrain_train_step` always stops its gradient): it runs under
     `no_grad`, or not at all when the batch carries cached `grid`/`roi`
     features.  Dropout is drawn
-    from generators derived from (seed, state.step, dp_index), as in
-    `make_finetune_train_step`.  Nothing in the step waits on the device."""
+    from generators derived from (seed, state.step, dp_index), and the step
+    runs eagerly or as a graph's replay, as in `make_finetune_train_step`.
+    Nothing in the step waits on the device."""
     dp_index = mesh.dp_index() if dp_index is None else dp_index
 
-    def step(batch: Batch, seed: int) -> Dict[str, torch.Tensor]:
-        with span("train_step", step=True):
-            state.model.train()
-            rng = DropoutRng.for_step(seed, state.step, batch["enc_input_ids"].device,
-                                      dp_index)
-            loss, acc = pretrain_loss(state.model, state.visual, batch, rng, vocab_chunk)
-            with span("backward"):
-                loss.backward()
-            state.apply_gradients()
-            return {"loss": loss.detach(), "token_accuracy": acc}
+    def body(batch: Batch, rng: DropoutRng) -> Dict[str, torch.Tensor]:
+        state.model.train()
+        loss, acc = pretrain_loss(state.model, state.visual, batch, rng, vocab_chunk)
+        with span("backward"):
+            loss.backward()
+        state.apply_gradients()
+        return {"loss": loss.detach(), "token_accuracy": acc}
 
-    return step
+    return TrainStep(state, body, dp_index)

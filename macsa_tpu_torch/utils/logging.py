@@ -247,12 +247,15 @@ def span(name: str, step: bool = False, device: bool = False):
     records, and the card idles whenever it waits on the host).  A count
     may be a 0-d device tensor (the MoE layer's `rows`), so that the block
     never waits for the card: `SpanStore.per_step` reads it afterwards.  Under `torch.compile` or `torch.export` it is a
-    `nullcontext`: the traced graph holds no profiler operation."""
+    `nullcontext`: the traced graph holds no profiler operation; so it is
+    while a CUDA graph captures (`train/step_graph.py`): no replay repeats
+    the block's host work, and its events would join the graph."""
     if not _autograd_profiler._is_profiler_enabled:
         if SPANS.live:
             SPANS.end_episode()
         return _OFF
-    if torch.compiler.is_compiling():
+    if torch.compiler.is_compiling() or (torch.cuda.is_initialized()
+                                         and torch.cuda.is_current_stream_capturing()):
         return contextlib.nullcontext()
     return Span(SPANS, name, step, device)
 
