@@ -13,9 +13,8 @@ paths below (K2 at both phases' batches; K1's forward and backward with
 dropout on and off, bf16 on its tensor-core variant and f32 on its
 3xTF32 tensor-core variant, also at Phase 1's batches and its eval's, and at
 EF-CapTrRoBERTa's 256 rows, where bf16's forward walks ring passes and its
-backward streams tiles in two launches, and the two-launch backward is read
-once beside the one-launch kernel at 170 rows; the CUDA-core K1, which no
-path reaches, at head width 32, both dtypes and ways; K3,
+backward streams tiles in two launches; the CUDA-core K1, which no path
+reaches, at head width 32, both dtypes and ways; K3,
 the box attention, at the serving shape; K4, the 1x1 conv with its
 frozen-BN epilogue, at ResNet-152 stage 3 over 280 images, and K5, the
 whole identity bottleneck, at all four stages, then beside the Bottleneck
@@ -30,15 +29,16 @@ that call (`library_ms`: a yardstick only, the port never calls it), then,
 at the full width of the FCMF model
 (ViSoBERT-sized 12-layer text encoder at L=170, ResNet-152 over 7 images
 and 28 ROI crops per sample, batch 8, random weights from a seed):
-* runs `make_finetune_eval_step` (the serving forward),
+* runs `make_finetune_eval_step` (the serving forward) and holds its
+  logits against the plain path's,
 * runs the serving forward with the fused backbone runner
   (`models/fused_backbone.extract_features`, stage 3 through K5) feeding
   the FCMF forward with `use_pallas_box_attention=True` (K3), and holds
   its features and logits against the plain path's,
 * runs `make_finetune_train_step` (dropout 0.1, AdamW with the defaults
-  of `finetune.py`) for a few steps on one batch in f32 and bf16, after
-  holding one step's loss and gradients through the kernels (K3's
-  included) against the plain path's at dropout 0,
+  of `finetune.py`) for a few steps on one batch in f32 and bf16 (their
+  losses must fall), after holding one step's loss and gradients through
+  the kernels (K3's included) against the plain path's at dropout 0,
 * writes a synthetic dataset (`data/synth.py`: 64 train / 16 dev / 16 test
   reviews, 256x256 PNGs, a 12-layer text config) and runs the fine-tune
   driver on it from files (`train/finetune.main`, the defaults: ResNet-152,
@@ -49,7 +49,7 @@ and 28 ROI crops per sample, batch 8, random weights from a seed):
 * runs the Phase-1 seq2seq model (FCMF encoder + 12 decoder blocks, tied
   vocabulary table of 15004 rows, T = 20) at batch 16: one step's loss and
   gradients through the kernels against the plain path at dropout 0 in
-  f32, the chunked loss against the full one, then timed steps of
+  f32, the chunked loss against the full one, then steps of
   `make_pretrain_train_step` in f32 and bf16 on cached features and cold,
 * decodes greedily and with beam 3 (20 steps): the kernel path's tokens
   against the plain path's, greedy against beam 1, the incremental logits
@@ -88,6 +88,11 @@ and checks that each path went through its kernels.  Each phase prints
 its lines; any failure raises and the exit code is not 0.  The
 second-to-last line lists the kernels as JSON; the last line is the run's
 JSON verdict.  Without a CUDA device it exits non-zero and prints no result.
+
+The steps and forwards of the benchmark's cells (`BENCHMARK.json`) are
+timed there and nowhere here: this script times each kernel alone, and
+the entry points no cell runs.  K1's and K2's work comes from
+`port_bench/flops/counts.py`, and every kernel's bound from its `bound_s`.
 """
 
 from __future__ import annotations
@@ -111,48 +116,70 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from port_bench.flops import counts
+
 REPO = os.path.dirname(os.path.abspath(__file__))
-BATCH, NUM_ASPECTS, ITERS, TRAIN_STEPS = 8, 6, 3, 10
-PROFILE_STEPS, PROFILE_ROWS = 2, 24  # the bf16 train step's device-time breakdown
+BATCH, NUM_ASPECTS, TRAIN_STEPS = 8, 6, 10
 STAGE3_IMAGES = BATCH * (7 + 28)  # one serving batch: 8 x (7 images + 28 ROI crops)
 # frames of a ResNet pass: a tagger's one image, one review's images, two
 # reviews', one review's ROI crops (`resnet.K5_MIN_FRAMES`), a batch's
 # images, its ROI crops
 K5_FRAMES = (1, 7, 16, 28, BATCH * 7, BATCH * 28)
-P1_BATCH, P1_STEPS = 16, 3  # Phase 1: the driver's batch; timed steps in one reading
-P1_READINGS = {"float32": 1, "bfloat16": 3}  # readings of each feed (bf16 is the default path)
+P1_BATCH, P1_STEPS = 16, 3  # Phase 1: the driver's batch; steps after the first on each feed
 
 
 # (h = w, C, F) of the identity bottlenecks of ResNet-152's four stages at 224^2
 RESNET_STAGES = {1: (56, 256, 64), 2: (28, 512, 128), 3: (14, 1024, 256), 4: (7, 2048, 512)}
-# published peaks of one H100 SXM: device memory rate, dense bf16 tensor-core
-# rate, f32 rate outside the tensor cores; and f32 products taken as three
-# TF32 products each on the tensor cores (dense TF32: 495 TFLOP/s), K1's f32
-# kernels' arithmetic: 3 FLOP at 495 TFLOP/s for each f32 FLOP
-HBM_BYTES_PER_S = 3.35e12
-TF32_FLOPS = 495e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32x3": TF32_FLOPS / 3}
+# The peak a kernel's bound divides its operations by (its bytes go at
+# `counts.HBM_BYTES_S`): bf16 products on the tensor cores; f32 products as
+# the "tf32x3" kernels take them, three TF32 products each; f32 on the CUDA
+# cores (K2, K3 in f32, and the column beside every "tf32x3" bound).  The
+# benchmark's `k1_*_roofline` metrics count an f32 product once at
+# `counts.PEAK_TF32`: in f32 their bound is up to 3x smaller than this one.
+PEAK_FLOPS = {torch.bfloat16: counts.PEAK_BF16, "tf32x3": counts.PEAK_TF32 / 3,
+              torch.float32: 67e12}
 
 
-def bound(flops: float, nbytes: float, dtype) -> dict:
-    """The least time the card could take: the larger of the bytes (each
-    input read once, each output written once) over the memory rate and the
-    operations over the peak rate of `dtype`."""
-    by_ops, by_bytes = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(by_ops, by_bytes),
-            "bound_by": "operations" if by_ops > by_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+def bound(work: dict, dtype) -> dict:
+    """The least time the card could take for `work` (its "flop" and its
+    "bytes": each input read once, each output written once):
+    `counts.bound_s` at the peak of `dtype`, and the side that sets it."""
+    peak = PEAK_FLOPS[dtype]
+    seconds = counts.bound_s(work, peak)
+    by_bytes = counts.bound_s({**work, "flop": 0.0}, peak)
+    return {"bound_ms": seconds * 1e3,
+            "bound_by": "operations" if seconds > by_bytes else "bytes",
+            "flops": work["flop"], "bytes": work["bytes"]}
 
 
-def kernel_bound(flops: float, nbytes: float, dtype) -> dict:
+def kernel_bound(work: dict, dtype) -> dict:
     """`bound` of a kernel on the tensor cores: in f32 the operations
     counted as the kernels take them, three TF32 products for each f32
     product (`bound_ms`), and beside that as f32 on the CUDA cores
     (`cuda_cores_bound_ms`); in bf16 as bf16 products."""
     if dtype == torch.float32:
-        return {**bound(flops, nbytes, "tf32x3"),
-                "cuda_cores_bound_ms": bound(flops, nbytes, torch.float32)["bound_ms"]}
-    return bound(flops, nbytes, dtype)
+        return {**bound(work, "tf32x3"),
+                "cuda_cores_bound_ms": bound(work, torch.float32)["bound_ms"]}
+    return bound(work, dtype)
+
+
+def attention_bound(b, l, h, d, dtype, backward: bool) -> dict:
+    """K1's (`counts.k1_forward`, no logsumexp: the calls timed here write
+    none) or K1b's (`counts.k1_backward`) bound at [b, l, h * d], h heads
+    (`kernel_bound`: f32 as three TF32 products, the CUDA-core one beside)."""
+    elt = torch.finfo(dtype).bits // 8
+    work = (counts.k1_backward(b, l, h * d, h, elt) if backward
+            else counts.k1_forward(b, l, h * d, h, elt, with_lse=False))
+    return kernel_bound(work, dtype)
+
+
+def pixels_bound(frames: int, valid: int, dtype) -> dict:
+    """K2's bound over `frames` 224^2 frames, `valid` of them valid, written
+    in `dtype` (`counts.k2_unpack`; a raw uint8 batch is counted as packed
+    frames all valid: 4 bytes a frame over, the validity word it lacks), at
+    the CUDA cores' f32 rate."""
+    return bound(counts.k2_unpack(frames, valid, 224, torch.finfo(dtype).bits // 8),
+                 torch.float32)
 
 
 def bound_text(b: dict) -> str:
@@ -373,11 +400,9 @@ def phase_k2(dev, image_prep):
             # call, which no CUDA graph can capture; its passes over the
             # whole batch keep the card busy, so back-to-back calls time the card
             plain_ms = plain_call_ms = cuda_ms(lambda: plain(x, dtype))
-            # an invalid frame needs only its validity word read; every
-            # output element is written; scale, subtract, scale per element
-            read = nbytes(x) if valid is None else \
-                int(valid.sum()) * nbytes(x[(0,) * valid.dim()]) + int((~valid).sum()) * 4
-            b = bound(3.0 * got.numel(), read + nbytes(got), torch.float32)
+            # an invalid frame needs only its validity word read
+            frames = got.numel() // (224 * 224 * 3)
+            b = pixels_bound(frames, frames if valid is None else int(valid.sum()), dtype)
             report[(name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                      "call_ms": call_ms, "plain_call_ms": plain_call_ms, **b}
             print(f"phase k2 {name} {str(dtype)[6:]} {tuple(x.shape)}: max_abs_err={err:.3g} "
@@ -395,21 +420,6 @@ def sdpa_inputs(q, k, v, mask, heads):
     b, l, hd = q.shape
     split = lambda x: x.view(b, l, heads, hd // heads).transpose(1, 2)
     return split(q), split(k), split(v), mask.to(q.dtype)[:, None, None, :]
-
-
-def attention_bound(b, l, h, d, dtype, backward: bool) -> dict:
-    """Forward: QK^T and PV (4 b h l^2 d operations); q, k, v and the mask
-    read, the output written.  Backward: the scores again, dP, dV, dQ, dK
-    (10 b h l^2 d); q, k, v, the output's gradient, the mask and the two
-    f32 row terms read, dq, dk, dv written (`kernel_bound`: f32 as three
-    TF32 products, with the CUDA-core count beside it)."""
-    size = torch.finfo(dtype).bits // 8
-    tensor = b * l * h * d * size
-    if backward:
-        flops, moved = 10.0 * b * h * l * l * d, 7 * tensor + b * l * 4 + 2 * b * h * l * 4
-    else:
-        flops, moved = 4.0 * b * h * l * l * d, 4 * tensor + b * l * 4
-    return kernel_bound(flops, moved, dtype)
 
 
 def phase_k1(dev, cuda_lib, fa):
@@ -562,39 +572,6 @@ def phase_k1_bwd(dev, cuda_lib, fa):
                       + ("none" if library_ms is None else f"{library_ms:.4f} (SDPA backward)")
                       + f" {bound_text(bd)}" + timing)
     return report
-
-
-def phase_k1_bwd_streamed(dev, cuda_lib, fa) -> None:
-    """One informational reading: the two-launch backward that bf16 runs
-    past 192 rows, at the train step's [48, 170, 768] (rate 0, mask
-    -10000) beside the one-launch kernel that runs there, timed in turns
-    (one, two, two, one) over 100 back-to-back calls, its gradients held
-    to the plain version at phase k1_bwd's bf16 tolerance.  Printed only;
-    no path takes it at this length."""
-    g = torch.Generator(dev).manual_seed(5)
-    b, l, h, d = BATCH * NUM_ASPECTS, 170, 12, 64
-    lens = torch.randint(1, l + 1, (b,), device=dev, generator=g)
-    lens[:8] = l
-    mask = torch.zeros(b, l, device=dev).masked_fill(
-        torch.arange(l, device=dev)[None, :] >= lens[:, None], -10000.0)
-    q, k, v, gout = (torch.randn(b, l, h * d, device=dev, generator=g).to(torch.bfloat16)
-                     for _ in range(4))
-    lse = fa._launch_fwd(q, k, v, mask, h, 0.0, 0, with_lse=True)[1]
-    got = fa._launch_bwd_streamed(q, k, v, mask, lse, gout, h, 0.0, 0)
-    wants = fa.attention_backward_reference(q, k, v, mask, gout, h)
-    torch.cuda.synchronize()
-    rel = {n: ((x.float() - w.float()).abs().max() / w.float().abs().max()).item()
-           for n, x, w in zip(("dq", "dk", "dv"), got, wants)}
-    if not max(rel.values()) <= 3e-2:
-        raise AssertionError(f"K1 two-launch backward at [{b},{l},{h * d}]: {rel} of max|ref|")
-    one = functools.partial(fa._launch_bwd, q, k, v, mask, lse, gout, h, 0.0, 0)
-    two = functools.partial(fa._launch_bwd_streamed, q, k, v, mask, lse, gout, h, 0.0, 0)
-    readings = [cuda_ms(fn, iters=100, warmup=10) for fn in (one, two, two, one)]
-    print(f"phase k1_bwd bf16 two-launch backward at [{b},{l},{h * d}] h={h} rate 0 mask "
-          f"-10000 (informational, not routed): rel_err "
-          + " ".join(f"{n}={e:.3g}" for n, e in rel.items())
-          + f" (tol 3e-2 of max|ref|); ms in turns one-launch {readings[0]:.4f}, two-launch "
-          f"{readings[1]:.4f} {readings[2]:.4f}, one-launch {readings[3]:.4f}")
 
 
 def phase_k1_head_width_32(dev, cuda_lib, fa) -> dict:
@@ -813,7 +790,7 @@ def phase_k3(dev, ba, cuda_lib):
         plain_call_ms = cuda_ms(lambda: ba.box_attention_reference(qc, kc, vc, gc))
         plain_ms = graph_ms(lambda: ba.box_attention_reference(qc, kc, vc, gc))
         # scores and the weighted sum: 4 bh n^2 d operations
-        bd = bound(4.0 * bh * n * n * d, nbytes(qc, kc, vc, gc, want), dtype)
+        bd = bound({"flop": 4.0 * bh * n * n * d, "bytes": nbytes(qc, kc, vc, gc, want)}, dtype)
         report[dtype] = {"err": err, "ms": ms, "plain_ms": plain_ms, "call_ms": call_ms,
                          "plain_call_ms": plain_call_ms, **bd}
         print(f"phase k3 {str(dtype)[6:]} [{bh},{n},{d}] gates {gc.eq(0).float().mean():.3f} "
@@ -891,9 +868,9 @@ def phase_k4(dev, cuda_lib, fr):
         # script), then the epilogue's passes
         library_ms = cuda_ms(lambda: library(*args), iters=10)
         x, w, mul, add, res, _ = args
-        bd = kernel_bound(2.0 * x.shape[0] * x.shape[1] * w.shape[1],
-                          nbytes(x, w, mul, add, res) + x.shape[0] * w.shape[1] * x.element_size(),
-                          dtype)
+        bd = kernel_bound({"flop": 2.0 * x.shape[0] * x.shape[1] * w.shape[1],
+                           "bytes": nbytes(x, w, mul, add, res)
+                           + x.shape[0] * w.shape[1] * x.element_size()}, dtype)
         report[(name, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                  "library_ms": library_ms, "variant": fr.matmul_variant(
                                      dtype, x.shape[0], w.shape[1], x.shape[1]), **bd}
@@ -966,8 +943,8 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
             plain_ms = cuda_ms(lambda: fr.bottleneck_reference(x2, *cast, n, hw, hw), iters=3,
                                warmup=1)
             module_ms = cuda_ms(lambda: block(x4), iters=iters, warmup=1)
-            bd = kernel_bound(2.0 * n * hw * hw * (2 * c * f + 9 * f * f),
-                              2 * nbytes(x2) + sum(nbytes(t) for t in cast), dtype)
+            bd = kernel_bound({"flop": 2.0 * n * hw * hw * (2 * c * f + 9 * f * f),
+                               "bytes": 2 * nbytes(x2) + sum(nbytes(t) for t in cast)}, dtype)
             by_frames = {}
             for frames in K5_FRAMES:
                 xf, xf4 = x2[:frames * hw * hw], x4[:frames]
@@ -1069,8 +1046,10 @@ def serving_batch(dev, cfg):
     return batch
 
 
-def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep):
-    """The serving forward at full width, through both kernels."""
+def phase_slice(dev, cuda_lib, config, layers, fcmf, resnet, steps, image_prep):
+    """The serving forward at full width through the kernels (K1, K2, K5),
+    once in f32 and once in bf16, against the plain path.  Its speed is
+    `serve.f32`'s to read."""
     def build(dtype: str, fused: bool):
         cfg = config.FCMFConfig(model=config.ModelConfig(dtype=dtype, fused_attention=fused),
                                 text=config.TextEncoderConfig(dtype=dtype,
@@ -1087,29 +1066,20 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     for m, src in ((model16, model32), (visual16, visual32), (plain32, model32)):
         m.load_state_dict(src.state_dict(), strict=True)
     batch = serving_batch(dev, cfg)
-    pairs = BATCH * cfg.num_imgs
-
-    def drive(step):
-        preds, logits = step(batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            preds, logits = step(batch)
-        torch.cuda.synchronize()
-        return preds, logits, (time.perf_counter() - t0) * 1e3 / ITERS
 
     # the main path: every count from 0, read right after
     cuda_lib.reset_launch_counts()
-    preds32, logits32, ms32 = drive(steps.make_finetune_eval_step(model32, visual32))
-    preds16, logits16, ms16 = drive(steps.make_finetune_eval_step(model16, visual16))
+    preds32, logits32 = steps.make_finetune_eval_step(model32, visual32)(batch)
+    preds16, logits16 = steps.make_finetune_eval_step(model16, visual16)(batch)
+    torch.cuda.synchronize()
     launches = dict(cuda_lib.launch_counts)
-    forwards = 2 * (ITERS + 1)
-    # half the forwards are bf16 (K1 in bf16 on the tensor cores), half f32
-    # (3xTF32); K5 on the identity blocks of stages 1-3 of both ResNet passes
-    k1 = cfg.text.num_hidden_layers * forwards
-    want = {"fused_self_attention": k1, "fused_self_attention.wgmma": k1 // 2,
-            "fused_self_attention.tf32x3": k1 // 2, "device_normalize": 2 * forwards,
-            **k5_counts({"float32": forwards, "bfloat16": forwards})}
+    # one forward in bf16 (K1 in bf16 on the tensor cores), one in f32
+    # (3xTF32); K5 on the identity blocks of stages 1-3 of a forward's two
+    # ResNet passes
+    k1 = cfg.text.num_hidden_layers
+    want = {"fused_self_attention": 2 * k1, "fused_self_attention.wgmma": k1,
+            "fused_self_attention.tf32x3": k1, "device_normalize": 4,
+            **k5_counts({"float32": 2, "bfloat16": 2})}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     for name, logits in (("f32", logits32), ("bf16", logits16)):
@@ -1136,23 +1106,19 @@ def phase_slice(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     bf16_gap = (logits16 - logits32).abs().max().item()
     agree = (preds16 == preds32).float().mean().item()
     print(f"phase slice f32: logits {tuple(logits32.shape)} finite; kernel vs plain path "
-          f"max_abs_err={err:.3g} (atol 1e-3, TF32 off), preds equal; "
-          f"{ms32:.2f} ms/forward, {pairs * 1e3 / ms32:.1f} pairs/s on {card}")
+          f"max_abs_err={err:.3g} (atol 1e-3, TF32 off), preds equal")
     print(f"phase slice bf16: logits finite; max |bf16 - f32| = {bf16_gap:.3g}, "
-          f"pred agreement {agree:.3f}; {ms16:.2f} ms/forward, "
-          f"{pairs * 1e3 / ms16:.1f} pairs/s on {card}")
-    print(f"phase slice launches over {forwards} forwards: {launches} (12 K1 and 88 K5 per "
-          f"forward: wgmma variant in bf16, tf32x3 in f32)")
+          f"pred agreement {agree:.3f}")
+    print(f"phase slice launches over 2 forwards: {launches} (12 K1 and 88 K5 per forward: "
+          f"wgmma variant in bf16, tf32x3 in f32)")
     return launches
 
 
-def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep,
-                fused_backbone):
+def phase_fused(dev, cuda_lib, config, layers, fcmf, resnet, steps, image_prep, fused_backbone):
     """The serving forward at full width through the fused backbone runner
     (stage 3's identity blocks through K5) and the FCMF forward with
-    `use_pallas_box_attention=True` (K3), against the plain path; the
-    backbone's time a pass with stage 3 through K5, by the rule
-    (`resnet.takes_k5`: stages 1-3) and on the modules alone."""
+    `use_pallas_box_attention=True` (K3), once in f32 and once in bf16,
+    against the plain path; the runner's features against the modules'."""
     def build(dtype: str, kernels: bool):
         cfg = config.FCMFConfig(
             model=config.ModelConfig(dtype=dtype, fused_attention=kernels),
@@ -1171,7 +1137,6 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     for m, src in ((model16, model32), (visual16, visual32), (plain32, model32)):
         m.load_state_dict(src.state_dict(), strict=True)
     batch = serving_batch(dev, cfg)
-    pairs = BATCH * cfg.num_imgs
     visuals = {"f32": visual32, "bf16": visual16}
 
     def fused_step(model, visual):
@@ -1188,32 +1153,20 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             return eval_step({**b, "grid": grid, "roi": roi})
         return step
 
-    def drive(step):
-        preds, logits = step(batch)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(ITERS):
-            preds, logits = step(batch)
-        torch.cuda.synchronize()
-        return preds, logits, (time.perf_counter() - t0) * 1e3 / ITERS
-
     # the main path: every count from 0, read right after
     cuda_lib.reset_launch_counts()
-    preds32, logits32, ms32 = drive(fused_step(model32, visual32))
-    preds16, logits16, ms16 = drive(fused_step(model16, visual16))
+    preds32, logits32 = fused_step(model32, visual32)(batch)
+    preds16, logits16 = fused_step(model16, visual16)(batch)
+    torch.cuda.synchronize()
     launches = dict(cuda_lib.launch_counts)
-    forwards = 2 * (ITERS + 1)
     identity_blocks = visual32.config.stage_sizes[2] - 1
-    # half the forwards are bf16 (K5 "wgmma"), half f32 (K5 "tf32x3"): all
-    # on the tensor cores
-    want = {"fused_bottleneck": identity_blocks * forwards,
-            "fused_bottleneck.wgmma": identity_blocks * forwards // 2,
-            "fused_bottleneck.tf32x3": identity_blocks * forwards // 2,
-            "box_attention": forwards,
-            "fused_self_attention": cfg.text.num_hidden_layers * forwards,
-            "fused_self_attention.wgmma": cfg.text.num_hidden_layers * forwards // 2,
-            "fused_self_attention.tf32x3": cfg.text.num_hidden_layers * forwards // 2,
-            "device_normalize": 2 * forwards}
+    k1 = cfg.text.num_hidden_layers
+    # one forward in bf16 (K5 "wgmma"), one in f32 (K5 "tf32x3"): all on
+    # the tensor cores
+    want = {"fused_bottleneck": 2 * identity_blocks, "fused_bottleneck.wgmma": identity_blocks,
+            "fused_bottleneck.tf32x3": identity_blocks, "box_attention": 2,
+            "fused_self_attention": 2 * k1, "fused_self_attention.wgmma": k1,
+            "fused_self_attention.tf32x3": k1, "device_normalize": 4}
     if launches != want:
         raise AssertionError(f"fused launch counts {launches} != {want}")
     for name, logits in (("f32", logits32), ("bf16", logits16)):
@@ -1239,9 +1192,8 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     bf16_gap = (logits16 - logits32).abs().max().item()
     agree = (preds16 == preds32).float().mean().item()
 
-    # the features against the module's own grid/pooled heads, and the
-    # backbone's time per pass over the 280 images, fused and plain
-    feats, times = {}, {}
+    # the runner's features against the modules' (`stages=()`)
+    feats = {}
     with torch.inference_mode():
         for name, visual in visuals.items():
             dt = visual.config.torch_dtype
@@ -1250,14 +1202,6 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             feats[name] = fused_backbone.extract_features(visual, imgs, rois)
             feats["plain_" + name] = fused_backbone.extract_features(visual, imgs, rois,
                                                                      stages=())
-            times[name] = (
-                cuda_ms(lambda: fused_backbone.extract_features(visual, imgs, rois),
-                        iters=3, warmup=1),
-                cuda_ms(lambda: fused_backbone.extract_features(visual, imgs, rois,
-                                                                stages=()),
-                        iters=3, warmup=1),
-                cuda_ms(lambda: (visual.grid_features(imgs), visual.pooled_features(rois)),
-                        iters=3, warmup=1))
             del imgs, rois
     torch.cuda.synchronize()
     # f32: summation order only, relative to max|ref|.  bf16: the plain
@@ -1275,46 +1219,24 @@ def phase_fused(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
             raise AssertionError(f"fused bf16 {head} features {bf16_err} of max|f32 ref| > 2 x "
                                  f"the plain bf16 path's {plain_bf16_err}")
     print(f"phase fused f32: logits {tuple(logits32.shape)} finite; fused path vs plain path "
-          f"max_abs_err={err:.3g} (atol 1e-3, TF32 off), preds equal; {ms32:.2f} ms/forward, "
-          f"{pairs * 1e3 / ms32:.1f} pairs/s on {card}")
+          f"max_abs_err={err:.3g} (atol 1e-3, TF32 off), preds equal")
     print(f"phase fused bf16: logits finite; max |bf16 - f32| = {bf16_gap:.3g}, pred agreement "
-          f"{agree:.3f}; {ms16:.2f} ms/forward, {pairs * 1e3 / ms16:.1f} pairs/s on {card}")
+          f"{agree:.3f}")
     for head, (f32_err, bf16_err, plain_bf16_err) in errs.items():
         print(f"phase fused {head} features vs the plain f32 heads (rel to max|ref|): fused f32 "
               f"{f32_err:.3g} (tol 1e-4), fused bf16 {bf16_err:.3g}, plain bf16 "
               f"{plain_bf16_err:.3g} (fused bf16 <= 2 x plain bf16)")
-    for name, (fused_ms, plain_ms, rule_ms) in times.items():
-        print(f"phase fused backbone {name} over {STAGE3_IMAGES} images at 224^2: fused "
-              f"(stage 3 through K5) {fused_ms:.2f} ms/pass, plain {plain_ms:.2f} ms/pass; the "
-              f"heads (two passes, K5 where resnet.takes_k5 says) {rule_ms:.2f} ms on {card}")
-    print(f"phase fused launches over {forwards} forwards: {launches} ({identity_blocks} K5 "
-          f"and {cfg.text.num_hidden_layers} K1 (both tf32x3 in f32, wgmma in bf16), 1 K3, 2 "
-          f"K2 per forward)")
-    return launches, times
+    print(f"phase fused launches over 2 forwards: {launches} ({identity_blocks} K5 and {k1} K1 "
+          f"(both tf32x3 in f32, wgmma in bf16), 1 K3, 2 K2 per forward)")
+    return launches
 
 
-@contextlib.contextmanager
-def without_device_guard(cuda_lib, *modules):
-    """The launch functions of `modules` without their device guard
-    (`cuda_lib.on_tensor_device`) while the block runs -> how many."""
-    guard = cuda_lib.on_tensor_device(lambda x: x).__code__
-    guarded = [(m, name, fn) for m in modules for name, fn in vars(m).items()
-               if getattr(fn, "__code__", None) is guard]
-    for m, name, fn in guarded:
-        setattr(m, name, fn.__wrapped__)
-    try:
-        yield len(guarded)
-    finally:
-        for m, name, fn in guarded:
-            setattr(m, name, fn)
-
-
-def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_prep,
-                optim, train_state, fa):
+def phase_train(dev, cuda_lib, config, layers, fcmf, resnet, steps, image_prep, optim,
+                train_state):
     """The fine-tune train step at full width: a gradient check at dropout
-    0 (kernels vs plain path, f32), then TRAIN_STEPS timed steps on one
-    batch in f32 and in bf16 through the kernels, and the bf16 step with
-    and without the kernels' device guard."""
+    0 (kernels vs plain path, f32), then 1 + TRAIN_STEPS steps on one batch
+    in f32 and in bf16 through the kernels, whose losses must fall.  Their
+    speed is the training cells' to read."""
     def build(dtype: str, fused: bool, dropout: float):
         kw = dict(dtype=dtype, fused_attention=fused, hidden_dropout_prob=dropout,
                   attention_probs_dropout_prob=dropout)
@@ -1332,7 +1254,6 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     batch = serving_batch(dev, cfg)
     batch["labels"] = torch.randint(0, cfg.num_labels, (BATCH, NUM_ASPECTS), device=dev,
                                     generator=torch.Generator(dev).manual_seed(8))
-    pairs = BATCH * cfg.num_imgs
 
     # one step's loss and gradients at dropout 0: kernels against the plain
     # path (attention without K1, pixels normalized by K2's plain version)
@@ -1381,25 +1302,14 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
     results = {}
     for dtype in ("float32", "bfloat16"):
         step = trainer(dtype)
-        losses = [step(batch, seed=0)["loss"]]  # untimed: first launch of everything
-        torch.cuda.synchronize()
-        t0, cpu0 = time.perf_counter(), time.process_time()
-        for _ in range(TRAIN_STEPS):
-            losses.append(step(batch, seed=0)["loss"])
-        # when the host has issued the last step: equal to the wall time
-        # where the host, not the card, is the limit
-        issue_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-        cpu_ms = (time.process_time() - cpu0) * 1e3 / TRAIN_STEPS
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        losses = [step(batch, seed=0)["loss"] for _ in range(1 + TRAIN_STEPS)]
         losses = [x.item() for x in losses]
         # one batch at a rate of 7e-4 with dropout on: single steps go up
         # as well as down, so the last three are held against the first
         if not all(math.isfinite(x) for x in losses) or not sum(losses[-3:]) / 3 < losses[0]:
             raise AssertionError(f"train {dtype}: losses {losses} not finite and falling")
-        results[dtype] = (ms, losses, issue_ms, cpu_ms)
-        if dtype == "float32":  # profiled below, after the counts are read
-            step32 = step
+        results[dtype] = losses
+        del step
     launches = dict(cuda_lib.launch_counts)
     n_steps = 2 * (TRAIN_STEPS + 1)
     # no K3: with dropout active the box head takes its plain path, as in JAX;
@@ -1411,62 +1321,12 @@ def phase_train(dev, card, cuda_lib, config, layers, fcmf, resnet, steps, image_
         want.update({name: k1, f"{name}.wgmma": k1 // 2, f"{name}.tf32x3": k1 // 2})
     if launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
-    for dtype, (ms, losses, issue_ms, cpu_ms) in results.items():
-        print(f"phase train {dtype}: {ms:.2f} ms/step, {pairs * 1e3 / ms:.1f} pairs/s over "
-              f"{TRAIN_STEPS} steps after one untimed (the host issued them in {issue_ms:.2f} "
-              f"ms/step, {cpu_ms:.2f} ms/step of process CPU time), on {card}; losses "
+    for dtype, losses in results.items():
+        print(f"phase train {dtype}: losses over {len(losses)} steps on one batch "
               + " ".join(f"{x:.4f}" for x in losses))
     print(f"phase train launches over {n_steps} steps: {launches} (12 K1 forward, "
           f"12 K1 backward (wgmma variants in bf16, tf32x3 in f32), 2 K2, 88 K5, 0 K3 per "
           f"step: dropout 0.1 takes the box head's plain path)")
-    # where the bf16 step's device time goes (after the counts were read)
-    rows = device_profile(lambda: step(batch, seed=0), iters=PROFILE_STEPS, warmup=0)
-    total = sum(r[0] for r in rows)
-    print(f"phase train bfloat16 profile: {total / 1e3 / PROFILE_STEPS:.2f} ms/step of device "
-          f"time in {sum(r[1] for r in rows) // PROFILE_STEPS} kernels a step (torch.profiler, "
-          f"{PROFILE_STEPS} steps); ms/step x calls/step, largest first:")
-    for rank, (us, calls, name) in enumerate(rows):
-        if rank < PROFILE_ROWS or "attention_" in name:  # K1's kernels wherever they rank
-            print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  {name[:100]}")
-    # the f32 step's device time and K1's share of it (the 3xTF32 kernels)
-    rows = device_profile(lambda: step32(batch, seed=0), iters=PROFILE_STEPS, warmup=0)
-    k1_us = sum(r[0] for r in rows if "attention_" in r[2])
-    print(f"phase train float32 profile: {sum(r[0] for r in rows) / 1e3 / PROFILE_STEPS:.2f} "
-          f"ms/step of device time in {sum(r[1] for r in rows) // PROFILE_STEPS} kernels a step, "
-          f"K1 and K1b {k1_us / 1e3 / PROFILE_STEPS:.3f} of it (torch.profiler, {PROFILE_STEPS} "
-          f"steps); ms/step x calls/step:")
-    for rank, (us, calls, name) in enumerate(rows):
-        if rank < 6 or "attention_" in name:
-            print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  {name[:100]}")
-    del step32
-    torch.cuda.empty_cache()
-
-    # the host cost of the device guard around K1's and K2's launches (26 a step):
-    # the bf16 step with it, without, without, with; and one guard alone
-    def step_ms() -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TRAIN_STEPS):
-            step(batch, seed=0)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
-
-    guard_ms: dict = {True: [], False: []}
-    for guarded in (True, False, False, True):
-        if guarded:
-            guard_ms[True].append(step_ms())
-            continue
-        with without_device_guard(cuda_lib, fa, image_prep) as n_unguarded:
-            guard_ms[False].append(step_ms())
-
-    def enter_guard():
-        with torch.cuda.device(dev):
-            pass
-    print(f"phase train bfloat16 device guard: {guard_ms[True][0]:.2f}, {guard_ms[True][1]:.2f} "
-          f"ms/step with it, {guard_ms[False][0]:.2f}, {guard_ms[False][1]:.2f} without "
-          f"({n_unguarded} launch functions unguarded; {TRAIN_STEPS} steps a reading, in the "
-          f"order with, without, without, with); a guard's entry and exit alone "
-          f"{host_us(enter_guard, calls=2000):.2f} us of host time, 26 a step; on {card}")
     return launches
 
 
@@ -1479,7 +1339,7 @@ def phase_finetune(card, cuda_lib, synth, finetune):
     written to a temporary directory, `finetune.main` with its defaults
     (ResNet-152, L = 170, 7 images, 4 ROIs, batch 8, bf16, the card) for
     two epochs with eval and test, then a second `main` that resumes from
-    `last` for one more epoch.  (The steps' device time is phase train's to
+    `last` for one more epoch.  (The steps' speed is the training cells' to
     read; the driver's `--profile_dir` is not driven here.)"""
     n_train, n_dev, n_test, epochs, log_every = 64, 16, 16, 2, 4
     layers_per_pass = 12
@@ -1625,12 +1485,13 @@ def grad_gap(model, plain, what: str, rel: float) -> tuple:
     return worst[0], worst[1], scale
 
 
-def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, steps, image_prep,
-                        optim, train_state):
+def phase_pretrain_step(dev, cuda_lib, config, layers, seq2seq, resnet, steps, image_prep, optim,
+                        train_state):
     """The Phase-1 train step at full width, batch 16: a gradient check at
     dropout 0 in f32 (kernels vs plain path; chunked vs full loss), then
-    timed steps in f32 and bf16 on cached features and cold, and after the
-    last timed one a `torch.profiler` breakdown of the bf16 steps."""
+    1 + P1_STEPS steps in f32 and in bf16 on cached features and as many
+    cold, whose launches are counted and whose losses must fall.  Their
+    speed is `pretrain.cached`'s to read."""
     build = functools.partial(build_seq2seq, dev, config, seq2seq, resnet)
     cfg, dec_cfg, model, visual = build("float32", True, 0.0)
     layers.init_weights(model, torch.Generator(dev).manual_seed(22), cfg.model.initializer_range)
@@ -1704,38 +1565,18 @@ def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, st
                           max_grad_norm=1.0)
         return m, v, steps.make_pretrain_train_step(train_state.TrainState.create(m, v, opt))
 
-    def timed(step, b, readings):
-        """`readings` readings of P1_STEPS steps each -> per-step wall,
-        host launch and CUDA-event times of each reading, and the losses."""
-        losses, wall, issued, events = [], [], [], []
-        for _ in range(readings):
-            torch.cuda.synchronize()
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0 = time.perf_counter()
-            start.record()
-            for _ in range(P1_STEPS):
-                losses.append(step(b, seed=0)["loss"])
-            end.record()
-            issued.append((time.perf_counter() - t0) * 1e3 / P1_STEPS)
-            torch.cuda.synchronize()
-            wall.append((time.perf_counter() - t0) * 1e3 / P1_STEPS)
-            events.append(start.elapsed_time(end) / P1_STEPS)
-        return losses, wall, issued, events
-
     # the main path: every count from 0, read right after
     cuda_lib.reset_launch_counts()
-    results, keep = {}, None
+    results = {}
+    per_feed = 1 + P1_STEPS
     for dtype in ("float32", "bfloat16"):
-        per_feed = 1 + P1_READINGS[dtype] * P1_STEPS
         m, v, step = trainer(dtype)
         feeds = {"cached": {**cached, "grid": grid.to(m.config.model.torch_dtype),
                             "roi": roi.to(m.config.model.torch_dtype)}, "cold": batch}
         all_losses = []
         for feed, b in feeds.items():
             before = dict(cuda_lib.launch_counts)
-            first = step(b, seed=0)["loss"]  # untimed: first launch of everything
-            losses, wall, issued, events = timed(step, b, P1_READINGS[dtype])
-            all_losses += [first] + losses
+            all_losses += [step(b, seed=0)["loss"] for _ in range(per_feed)]
             got = {k: n - before.get(k, 0) for k, n in cuda_lib.launch_counts.items()
                    if n != before.get(k, 0)}
             variant = K1_VARIANT[m.config.model.torch_dtype]
@@ -1745,7 +1586,6 @@ def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, st
                 want.update({name: k1 * per_feed, f"{name}.{variant}": k1 * per_feed})
             if got != want:
                 raise AssertionError(f"pretrain_step {dtype} {feed}: launches {got} != {want}")
-            results[(dtype, feed)] = (wall, issued, events)
         all_losses = [x.item() for x in all_losses]
         # one batch with dropout on: single steps go up as well as down, so
         # the last three are held against the first (the rule of phase train)
@@ -1754,41 +1594,17 @@ def phase_pretrain_step(dev, card, cuda_lib, config, layers, seq2seq, resnet, st
             raise AssertionError(f"pretrain_step {dtype}: losses {all_losses} not finite and "
                                  f"falling")
         results[dtype] = all_losses
-        if dtype == "bfloat16":
-            keep = (step, feeds)
-        else:
-            del m, v, step, feeds
-            torch.cuda.empty_cache()
+        del m, v, step, feeds
+        torch.cuda.empty_cache()
     launches = dict(cuda_lib.launch_counts)
     for dtype in ("float32", "bfloat16"):
-        for feed in ("cached", "cold"):
-            wall, issued, events = results[(dtype, feed)]
-            print(f"phase pretrain_step {dtype} {feed} features, batch {P1_BATCH}, dropout 0.1: "
-                  f"wall {spread(wall)} ms/step, "
-                  f"{P1_BATCH * 1e3 / sorted(wall)[len(wall) // 2]:.1f} "
-                  f"samples/s; the host issued a step in {spread(issued)} ms; between CUDA "
-                  f"events {spread(events)} ms/step (median (min-max) of {len(wall)} "
-                  f"reading(s) of {P1_STEPS} steps after one untimed) on {card}")
         print(f"phase pretrain_step {dtype} losses over {len(results[dtype])} steps on one "
-              f"batch: " + " ".join(f"{x:.4f}" for x in results[dtype]))
+              f"batch ({per_feed} on cached features, then {per_feed} cold; dropout 0.1): "
+              + " ".join(f"{x:.4f}" for x in results[dtype]))
     n_steps = sum(len(results[dtype]) for dtype in ("float32", "bfloat16"))
     print(f"phase pretrain_step launches over {n_steps} steps: {launches} (a step: 12 K1 "
           f"forward, 12 K1 backward (wgmma variants in bf16, tf32x3 in f32), 2 K2 cold "
           f"and 0 on cached features, 0 K3)")
-    # where the bf16 step's device time goes (after the counts were read)
-    step, feeds = keep
-    for feed, b in feeds.items():
-        rows = device_profile(lambda: step(b, seed=0), iters=PROFILE_STEPS, warmup=0,
-                              host_too=False)
-        total = sum(r[0] for r in rows)
-        print(f"phase pretrain_step bfloat16 {feed} profile: {total / 1e3 / PROFILE_STEPS:.2f} "
-              f"ms/step of device time in {sum(r[1] for r in rows) // PROFILE_STEPS} kernels a "
-              f"step (torch.profiler, {PROFILE_STEPS} steps); ms/step x calls/step, largest "
-              f"first:")
-        for rank, (us, calls, name) in enumerate(rows):
-            if rank < 14 or "attention_" in name:
-                print(f"  {us / 1e3 / PROFILE_STEPS:8.3f} x{calls // PROFILE_STEPS:5d}  "
-                      f"{name[:100]}")
     return launches
 
 
@@ -3462,7 +3278,6 @@ def main() -> int:
     k2_phase1 = run(phase_k2_phase1_shapes, dev, image_prep)
     k1 = run(phase_k1, dev, cuda_lib, fa)
     k1_bwd = run(phase_k1_bwd, dev, cuda_lib, fa)
-    run(phase_k1_bwd_streamed, dev, cuda_lib, fa)
     k1_phase1 = run(phase_k1_phase1_shapes, dev, cuda_lib, fa)
     k1_baselines = run(phase_k1_baseline_shapes, dev, cuda_lib, fa)
     k1_tp = run(phase_k1_tp_shapes, dev, cuda_lib, fa)
@@ -3471,11 +3286,11 @@ def main() -> int:
     k4, k4_launches = run(phase_k4, dev, cuda_lib, fr)
     k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
     k45_simt = run(phase_k45_simt_f32, dev, cuda_lib, fr)
-    launches = run(phase_slice, dev, smi, cuda_lib, *model_mods)
-    fused_launches, _ = run(phase_fused, dev, smi, cuda_lib, *model_mods, fused_backbone)
-    train_launches = run(phase_train, dev, smi, cuda_lib, *model_mods, optim, train_state, fa)
+    launches = run(phase_slice, dev, cuda_lib, *model_mods)
+    fused_launches = run(phase_fused, dev, cuda_lib, *model_mods, fused_backbone)
+    train_launches = run(phase_train, dev, cuda_lib, *model_mods, optim, train_state)
     finetune_launches = run(phase_finetune, smi, cuda_lib, synth, finetune)
-    step_launches = run(phase_pretrain_step, dev, smi, cuda_lib, config, layers, seq2seq, resnet,
+    step_launches = run(phase_pretrain_step, dev, cuda_lib, config, layers, seq2seq, resnet,
                         steps, image_prep, optim, train_state)
     decode_launches = run(phase_decode, dev, smi, cuda_lib, config, layers, seq2seq, resnet,
                           steps)

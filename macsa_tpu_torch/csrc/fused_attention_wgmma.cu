@@ -950,19 +950,3 @@ extern "C" int macsa_fused_attention_bwd_wgmma(const void* q, const void* k, con
       static_cast<bf16*>(dv), L, H, 1.0f / sqrtf(static_cast<float>(kD)), drop);
   return static_cast<int>(cudaGetLastError());
 }
-
-// The streaming two-launch backward at any L, whatever the length: what
-// `macsa_fused_attention_bwd_wgmma` runs past kBwdRows rows, callable at
-// shorter rows to measure it beside the one-launch kernel.  The port's
-// wrappers never call it.
-extern "C" int macsa_fused_attention_bwd_wgmma_streamed(
-    const void* q, const void* k, const void* v, const void* mask, const void* g,
-    const void* lse, void* row_term, void* dq, void* dk, void* dv, int B, int L, int H,
-    int dropout, unsigned keep_threshold, float inv_keep, unsigned seed,
-    const unsigned* seed_word, void* stream) {
-  if (bad_geometry(B, L, H) || row_term == nullptr) return cudaErrorInvalidValue;
-  return launch_bwd_streamed(q, k, v, mask, g, lse, row_term, dq, dk, dv, B, L, H,
-                             attention::make_dropout(dropout, keep_threshold, inv_keep, seed,
-                                                     seed_word),
-                             static_cast<cudaStream_t>(stream));
-}

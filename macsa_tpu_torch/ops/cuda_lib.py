@@ -56,9 +56,6 @@ _SIGNATURES = {
     # q, k, v, mask, g, lse, row_term (or NULL up to 192 rows), dq, dk, dv, B, L, H,
     # dropout, keep_threshold, inv_keep, seed, seed_word (or NULL), stream
     "macsa_fused_attention_bwd_wgmma": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P, _P],
-    # the same arguments: the two streaming launches at any length (measurement only)
-    "macsa_fused_attention_bwd_wgmma_streamed": [_P] * 10 + [_I, _I, _I, _I, _U, _F, _U, _P,
-                                                             _P],
     # the f32 tensor-core variants (csrc/fused_attention_tf32.cu), head width 64: the
     # same arguments as the bf16 ones (the backward's row_term is required)
     "macsa_fused_attention_fwd_tf32x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _U, _F, _U,

@@ -338,28 +338,6 @@ def _launch_bwd(q, k, v, mask, lse, g, num_heads, rate, seed):
     return dq, dk, dv
 
 
-@cuda_lib.on_tensor_device
-def _launch_bwd_streamed(q, k, v, mask, lse, g, num_heads, rate, seed):
-    """The tensor-core backward's two streaming launches at any length ->
-    (dq, dk, dv).  `_launch_bwd` takes them only past
-    `WGMMA_BWD_ONE_LAUNCH_LEN` rows; this lets a measurement read them at
-    shorter rows beside the one-launch kernel.  Counted nowhere: no path
-    calls it."""
-    _check_cuda_args(q, k, v, mask, num_heads, ("g", g), ("lse", lse))
-    b, l, hd = q.shape
-    if attention_variant(q.dtype, hd // num_heads, l, backward=True) != "wgmma" \
-            or g.shape != q.shape or g.dtype != q.dtype:
-        raise ValueError("the streaming backward takes bf16 q, k, v, g at head width "
-                         f"{WGMMA_HEAD_DIM}: {q.dtype} {tuple(q.shape)}, g {g.dtype}")
-    grads = [torch.empty_like(q) for _ in range(3)]
-    row_term = torch.empty_like(lse)
-    status = cuda_lib.library().macsa_fused_attention_bwd_wgmma_streamed(
-        *(x.data_ptr() for x in (q, k, v, mask, g, lse, row_term, *grads)), b, l, num_heads,
-        *_dropout_args(rate, seed), cuda_lib.stream_handle(q.device))
-    cuda_lib.check(status, "macsa_fused_attention_bwd_wgmma_streamed")
-    return tuple(grads)
-
-
 class _FusedAttention(torch.autograd.Function):
     """K1 forward kernel, and K1's backward kernel as its gradient (the
     custom VJP of the JAX package).  The mask gets no gradient."""

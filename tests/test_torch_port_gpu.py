@@ -144,31 +144,6 @@ def test_attention_tensor_core_kernels_at_tile_edges(cuda, dtype, tol, rate, l):
     _check_forward_and_backward(q, k, v, mask, gout, heads, rate, seed, tol)
 
 
-# the streaming backward (`_launch_bwd_streamed`) below the one-launch limit
-# too: the same function as the one-launch kernel, at one row, ragged and
-# whole tiles; counted nowhere
-@pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("l", [1, 40, 64, 170, 192])
-def test_streamed_backward_matches_plain_at_short_rows(cuda, rate, l):
-    g = torch.Generator(cuda).manual_seed(6)
-    b, heads, seed = 16, 12, 55
-    q, k, v, gout = (torch.randn(b, l, heads * 64, device=cuda, generator=g).to(torch.bfloat16)
-                     for _ in range(4))
-    lens = torch.randint(1, l + 1, (b,), device=cuda, generator=g)
-    lens[0] = l
-    mask = torch.zeros(b, l, device=cuda).masked_fill(
-        torch.arange(l, device=cuda) >= lens[:, None], MASKS["finfo_min"])
-    lse = fa._launch_fwd(q, k, v, mask, heads, rate, seed, with_lse=True)[1]
-    cuda_lib.reset_launch_counts()
-    got = fa._launch_bwd_streamed(q, k, v, mask, lse, gout, heads, rate, seed)
-    wants = fa.attention_backward_reference(q, k, v, mask, gout, heads, rate, seed)
-    torch.cuda.synchronize()
-    assert not cuda_lib.launch_counts["fused_self_attention_bwd"]
-    for name, x, w in zip("qkv", got, wants):
-        scale = w.float().abs().max().item()
-        assert (x.float() - w.float()).abs().max().item() <= 3e-2 * scale, name
-
-
 # Phase 1's shapes: the train step and the eval decode send K1 [16, 170, 768],
 # the driver's debug decode [2, 170, 768], BERTScore [<= 16, 64, 768]
 # (forward only); the decoder's own attention never reaches K1
