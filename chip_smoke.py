@@ -945,6 +945,17 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
             module_ms = cuda_ms(lambda: block(x4), iters=iters, warmup=1)
             bd = kernel_bound({"flop": 2.0 * n * hw * hw * (2 * c * f + 9 * f * f),
                                "bytes": 2 * nbytes(x2) + sum(nbytes(t) for t in cast)}, dtype)
+            planes = {}
+            if dtype == torch.float32:  # the weights' TF32 planes, once a call before the block
+                weights = [cast[i].contiguous() for i in (0, 3, 6)]
+                got_planes = fr.tf32x3_weight_planes(*weights).cpu().view(torch.int32)
+                want_planes = fr.tf32x3_weight_planes_reference(*(t.cpu() for t in weights))
+                if not torch.equal(got_planes, want_planes.view(torch.int32)):
+                    raise AssertionError(f"K5 stage {stage}: the weight planes differ from the "
+                                         "plain version's")
+                planes = {"planes_ms": queued_ms(lambda: fr.tf32x3_weight_planes(*weights),
+                                                 iters=20)[0]}
+                del got_planes, want_planes
             by_frames = {}
             for frames in K5_FRAMES:
                 xf, xf4 = x2[:frames * hw * hw], x4[:frames]
@@ -955,12 +966,15 @@ def phase_k5(dev, cuda_lib, layers, resnet, fused_backbone, fr):
                                      "bound_ms": bd["bound_ms"] * frames / n}
             report[(stage, dtype)] = {"err": err, "ms": ms, "plain_ms": plain_ms,
                                       "library_ms": module_ms, "variant": variant,
-                                      "shape": [n * hw * hw, c, f], "by_frames": by_frames, **bd}
+                                      "shape": [n * hw * hw, c, f], "by_frames": by_frames,
+                                      **planes, **bd}
             print(f"phase k5 {str(dtype)[6:]} stage {stage} [{n * hw * hw},{c}] F={f} n={n} "
                   f"{hw}x{hw} ({variant}): max_abs_err={err:.3g} rel {rel:.3g} (tol {tol} of "
                   f"max|ref|), vs the Bottleneck module rel {module_rel:.3g}; kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={module_ms:.4f} (the module, cuDNN "
-                  f"convs{', TF32 off' if dtype == torch.float32 else ''}) {bound_text(bd)}")
+                  f"convs{', TF32 off' if dtype == torch.float32 else ''}) {bound_text(bd)}"
+                  + (f"; its weight planes alone {planes['planes_ms']:.4f} ms queued (bit for bit "
+                     "the plain version's)" if planes else ""))
             for frames, t in by_frames.items():
                 print(f"phase k5 {str(dtype)[6:]} stage {stage} over {frames} frames, device "
                       f"ms queued: K5 {t['ms']:.4f}, the module {t['library_ms']:.4f} "

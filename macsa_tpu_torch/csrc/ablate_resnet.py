@@ -12,12 +12,14 @@ into its own library and called through `ctypes`, 10 back-to-back launches
 between CUDA events, all in one process: K4 at ResNet-152 stage 3 over 280
 images (conv1 [54880, 1024] -> 256 + ReLU, conv3 [54880, 256] -> 1024 +
 residual + ReLU) and K5 on one identity bottleneck of each stage over 280
-images, with the rows per block of `tf32x3_tile_rows`.  The variants
-compute wrong results; only their times mean something, except where a
-variant's name says it computes the same function; each variant's output
-is compared with the whole kernels' bit for bit.  Stores are taken out
-behind a condition the compiler cannot decide (`m_rows < 0`), so the
-products that feed them stay.  Needs an H100 and `nvcc`.
+images, with the rows per block of `tf32x3_tile_rows` (K5's time includes
+its weight planes' kernel).  The variants compute wrong results; only their
+times mean something, except where a variant's name says it computes the
+same function; each variant's output is compared with the whole kernels'
+bit for bit.  Pieces are taken out behind a condition the compiler cannot
+decide (`m_rows < 0`), so what feeds them stays; a copy taken out of K5's
+ring is taken out of the bytes its barrier waits for too.  Needs an H100 and
+`nvcc`.
 """
 
 import ctypes
@@ -40,17 +42,24 @@ ENTRIES = ("macsa_matmul_bn_act_tf32x3", "macsa_fused_bottleneck_tf32x3")
 STAGES = {1: (56, 256, 64), 2: (28, 512, 128), 3: (14, 1024, 256), 4: (7, 2048, 512)}
 IMAGES = 280
 
-# name -> [(old, new), ...]; every `old` must occur in the source once
+# name -> [(old, new), ...]; every `old` must occur in the source once.  Each
+# variant takes the same piece out of K4 (`mma.sync`, `cp.async` ring) and
+# K5 (`wgmma`, bulk-copy ring) where both have it.
 VARIANTS = {
     "whole": [],
     "one TF32 product (big*big)": [
         ("mma_tf32(part[j], a.small, b0[kk][j].big, b1[kk][j].big);", ";"),
-        ("mma_tf32(part[j], a.big, b0[kk][j].small, b1[kk][j].small);", ";")],
-    "products straight into the accumulators (no partial sums; other rounding)": [
+        ("mma_tf32(part[j], a.big, b0[kk][j].small, b1[kk][j].small);", ";"),
+        ("    wgmma::OpTf32<NW>::rs(part, a.small[s], big + s * kDescK8, s);  // s = 0 overwrites\n"
+         "    wgmma::OpTf32<NW>::rs(part, a.big[s], small + s * kDescK8, 1);\n"
+         "    wgmma::OpTf32<NW>::rs(part, a.big[s], big + s * kDescK8, 1);",
+         "    wgmma::OpTf32<NW>::rs(part, a.big[s], big + s * kDescK8, s);")],
+    "no partial-sum adds (K4: products straight into the accumulators; other rounding)": [
         ("    float part[kNT][4];\n#pragma unroll\n    for (int j = 0; j < kNT; ++j)\n"
          "#pragma unroll\n      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;\n",
          "    float (&part)[kNT][4] = acc[i];\n"),
-        ("acc[i][j][e] = __fadd_rn(acc[i][j][e], part[j][e]);", ";")],
+        ("acc[i][j][e] = __fadd_rn(acc[i][j][e], part[j][e]);", ";"),
+        ("acc[i] = __fadd_rn(acc[i], part[i]);", "acc[i] = part[i];")],
     "no splits (raw bits as both halves)": [
         ("using tf32x3::split;\nusing tf32x3::split_a;\n",
          "__device__ __forceinline__ Split split(float x) {\n"
@@ -59,15 +68,26 @@ VARIANTS = {
          "  const float a[4] = {a0, a1, a2, a3};\n  FragA f;\n"
          "  for (int e = 0; e < 4; ++e) f.big[e] = f.small[e] = __float_as_uint(a[e]);\n"
          "  return f;\n}\n")],
+    "products skipped (copies, waits and epilogues alone)": [
+        ("      stage_products<MT, P::kLdB>(acc, smem, off, a_k, b_off, tiles);",
+         "      if (tiles < 0) stage_products<MT, P::kLdB>(acc, smem, off, a_k, b_off, tiles);"),
+        ("        chunk_products<NW>(part, a,",
+         "        if (cv.chunks < 0) chunk_products<NW>(part, a,")],
     "no weight copies": [
         ("    cp_async16(smem_u32(dst + k * P::kLdB + c * 4),",
-         "    if (n_cols < 0) cp_async16(smem_u32(dst + k * P::kLdB + c * 4),")],
-    "no x copies (K4, conv1)": [
+         "    if (n_cols < 0) cp_async16(smem_u32(dst + k * P::kLdB + c * 4),"),
+        ("    mbar_expect_tx(full, bytes);\n    bulk_copy(dst, tile, bytes, full);",
+         "    mbar_expect_tx(full, 0);")],
+    "no x copies (K4, K5's conv1)": [
         ("    cp_async16(smem_u32(dst + r * kLdA + c * 4),",
-         "    if (m_rows < 0) cp_async16(smem_u32(dst + r * kLdA + c * 4),")],
+         "    if (m_rows < 0) cp_async16(smem_u32(dst + r * kLdA + c * 4),"),
+        ("    if (kc < chunks) {\n      cp_async16(",
+         "    if (kc < chunks && c < 0) {\n      cp_async16(")],
     "no stores to device memory": [
         ("*reinterpret_cast<float4*>(out + (row0",
-         "if (m_rows < 0) *reinterpret_cast<float4*>(out + (row0")],
+         "if (m_rows < 0) *reinterpret_cast<float4*>(out + (row0"),
+        ("*reinterpret_cast<float2*>(p.out + off + 8 * j) =",
+         "if (m0 < 0) *reinterpret_cast<float2*>(p.out + off + 8 * j) =")],
     "K4 in 128 x 128 tiles, two blocks an SM (same function)": [
         ("launch_matmul_bn_act<Pass<8, 7>>(", "launch_matmul_bn_act<Pass<4, 4>>("),
         ("__global__ void __launch_bounds__(kThreads, 1)\nmatmul_bn_act_tf32x3_kernel",
@@ -137,14 +157,15 @@ def cases(dev, stream):
               for s in ((c, f), (9, f, f), (f, c))]
         affine = [torch.rand(k, device=dev, generator=g) + 0.5 for k in (f, f, f, f, c, c)]
         out = torch.empty_like(x)
+        planes = torch.empty(fr.tf32x3_plane_floats(c, f), device=dev)
         rows = fr.tf32x3_tile_rows(hw, hw, f)
 
         def k5(lib, args=ptr(x, ws[0], *affine[:2], ws[1], *affine[2:4], ws[2], *affine[4:],
-                             out), hw=hw, c=c, f=f, rows=rows):
+                             out, planes), hw=hw, c=c, f=f, rows=rows):
             cuda_lib.check(lib.macsa_fused_bottleneck_tf32x3(*args, IMAGES, hw, hw, c, f, rows,
                                                              stream), "K5")
-        yield f"K5 stage {stage} TH={rows}", k5, (x, *ws), out
-        del x, ws, affine, out
+        yield f"K5 stage {stage} {rows} rows a block", k5, (x, *ws), out
+        del x, ws, affine, out, planes
         torch.cuda.empty_cache()
 
 

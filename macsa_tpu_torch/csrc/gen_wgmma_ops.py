@@ -11,12 +11,16 @@ shared memory through a descriptor (`Op<N>::ss`) or from registers
 (`Op<N>::rs`).  The instruction's transpose bits are template arguments
 (`ss<TA, TB>`, `rs<TB>`): 0 for an operand stored K-major (k contiguous),
 1 for one stored MN-major.  The defaults are a weight matrix's: A [m][k],
-B [k][n].  The header is committed; rerun the script to change it.
+B [k][n].  It also writes the TF32 products m64nNk8 for N in {64, 128}
+with A from registers (`OpTf32<N>::rs`), whose B is K-major only (TF32
+`wgmma` has no transpose bits).  The header is committed; rerun the
+script to change it.
 """
 
 from pathlib import Path
 
 WIDTHS = (64, 128, 192)
+TF32_WIDTHS = (64, 128)
 
 HEADER = '''\
 // Generated by gen_wgmma_ops.py; do not edit by hand.
@@ -86,6 +90,34 @@ template <> struct Op<{n}> {{
 '''
 
 
+TF32_HEADER = '''
+// m64nNk8 TF32 x TF32 -> f32 warpgroup products, A from registers: a[0..3]
+// of warp w's 16 x 8 slice are rows 16w + lane/4, + 8, + 0, + 8 at k =
+// lane%4, lane%4, + 4, + 4 (the m16n8k8 .tf32 A fragment); d as above.  B
+// is K-major ([n][k], k contiguous) through its descriptor.
+template <int N> struct OpTf32;
+'''
+
+
+def op_tf32(n: int) -> str:
+    n_acc = n // 2
+    d = operands(n_acc, 0)
+    return f'''
+template <> struct OpTf32<{n}> {{
+  static __device__ __forceinline__ void rs(float (&d)[{n_acc}], const uint32_t (&a)[4],
+                                            uint64_t desc_b, int accumulate) {{
+    asm volatile(
+        "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{n_acc + 5}, 0;\\n"
+        "wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 "
+        "{{{d}}}, "
+        "{{%{n_acc}, %{n_acc + 1}, %{n_acc + 2}, %{n_acc + 3}}}, %{n_acc + 4}, p, 1, 1;\\n}}\\n"
+        : {acc_constraints(n_acc)}
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+  }}
+}};
+'''
+
+
 FOOTER = '''
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\\n" ::: "memory"); }
 __device__ __forceinline__ void commit() {
@@ -99,9 +131,14 @@ template <int PENDING> __device__ __forceinline__ void wait() {
 '''
 
 
+def render() -> str:
+    """The header's text."""
+    return (HEADER + "".join(op(n) for n in WIDTHS) + TF32_HEADER
+            + "".join(op_tf32(n) for n in TF32_WIDTHS) + FOOTER)
+
+
 def main() -> None:
-    text = HEADER + "".join(op(n) for n in WIDTHS) + FOOTER
-    Path(__file__).with_name("wgmma_ops.cuh").write_text(text)
+    Path(__file__).with_name("wgmma_ops.cuh").write_text(render())
 
 
 if __name__ == "__main__":

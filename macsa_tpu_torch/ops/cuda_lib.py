@@ -76,9 +76,12 @@ _SIGNATURES = {
     "macsa_matmul_bn_act_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out, n, h, w, c, f, tile_rows, stream
     "macsa_fused_bottleneck_wgmma": [_P] * 11 + [_I] * 6 + [_P],
-    # the f32 tensor-core variants (csrc/fused_resnet_tf32.cu): the same arguments
+    # the f32 tensor-core variants (csrc/fused_resnet_tf32.cu): K4's arguments as
+    # above; K5's with the scratch of its weights' TF32 planes after out
     "macsa_matmul_bn_act_tf32x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "macsa_fused_bottleneck_tf32x3": [_P] * 11 + [_I] * 6 + [_P],
+    "macsa_fused_bottleneck_tf32x3": [_P] * 12 + [_I] * 6 + [_P],
+    # w1, w2, w3, planes, c, f, stream
+    "macsa_tf32_weight_planes": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 

@@ -16,8 +16,10 @@ the dtype and the shape alone: "wgmma"
 (`macsa_tpu_torch/csrc/fused_resnet_wgmma.cu`: bf16 products on the
 tensor cores, operands through an asynchronous ring in shared memory),
 "tf32x3" (`macsa_tpu_torch/csrc/fused_resnet_tf32.cu`: f32 at the same
-shapes on the tensor cores, every f32 product as three TF32 `mma.sync`
-products of operands split in registers) and "simt"
+shapes on the tensor cores, every f32 product as three TF32 products of
+split operands: K4 on `mma.sync`, split in registers; K5 on `wgmma`, its
+weights split once a call into K-major TF32 planes, `tf32x3_weight_planes`)
+and "simt"
 (`macsa_tpu_torch/csrc/fused_resnet.cu`: f32 sums on the CUDA cores, any
 other shape, f32 or bf16).  `cuda_lib.launch_counts` counts each
 launch under the kernel's name and under "<name>.<variant>".  Under autograd K4's
@@ -135,11 +137,11 @@ _WGMMA_X_RING = 4 * 128 * 64 * 2       # conv1's ring of x tiles, in a2's space
 _WGMMA_OUT_STAGE = 128 * (128 + 8) * 4  # conv3's f32 output staging tile, in a1's space
 
 
-# f32 tensor-core K5 ("tf32x3", csrc/fused_resnet_tf32.cu): its two ring
-# stages (a 112 x (16 + 4) x chunk and a 16 x (256 + 8) weight chunk each)
-# and conv3's per-warp output staging tiles (8 warps x 32 x (32 + 8)), in floats
-_TF32X3_RING = 2 * (112 * 20 + 16 * 264)
-_TF32X3_STAGING = 8 * 32 * 40
+# f32 tensor-core K5 ("tf32x3", csrc/fused_resnet_tf32.cu): a ring of three
+# weight tiles (256 columns by 16 k, its big and small TF32 planes), each of
+# the 8 warps' rings of three slots of 16 x rows by 16 k, two barriers a
+# stage, the alignment slack; in bytes
+_TF32X3_FIXED = 1024 + 3 * (256 * 16 * 4 * 2) + 8 * 3 * (16 * 16 * 4) + 3 * 2 * 8
 
 
 def matmul_variant(dtype: torch.dtype, m: int, n: int, k: int) -> str:
@@ -185,27 +187,101 @@ def wgmma_tile_rows(h: int, w: int, f: int, limit: int = SMEM_PER_BLOCK) -> int:
 
 def tf32x3_bottleneck_smem(tile_rows: int, w: int, f: int) -> int:
     """Bytes of shared memory of one block of the f32 tensor-core K5 with
-    `tile_rows` output image rows: the ring, a1 [(tile_rows + 2) * w + 1,
-    F + 4] (its last pixel row zero; no smaller than conv3's staging tiles,
-    which share its space) and a2 [tile_rows * w, F + 4], in f32."""
-    a1 = max(((tile_rows + 2) * w + 1) * (f + 4), _TF32X3_STAGING)
-    return (_TF32X3_RING + a1 + tile_rows * w * (f + 4)) * 4
+    `tile_rows` rows of x: the weight ring, the warps' rings of x rows, the
+    barriers and the alignment slack, and a1 [tile_rows + 2w + 2 + 1, F]
+    (the tile, a halo of w + 1 rows each side and the zero row; a2 takes its
+    first rows, or at F > 256, where conv2 takes two column passes,
+    tile_rows rows of its own) in f32 rows padded by 64 bytes."""
+    rows = tile_rows + 2 * w + 3 + (tile_rows if f > 256 else 0)
+    return _TF32X3_FIXED + rows * (4 * f + 64)
 
 
 @functools.lru_cache(maxsize=None)
 def tf32x3_tile_rows(h: int, w: int, f: int, limit: int = SMEM_PER_BLOCK) -> int:
-    """Output image rows per block of the f32 tensor-core K5: the most that
-    fit in `limit` bytes of shared memory, evened over the image's h rows
-    (h = 14, F = 256: 5 fit, three tiles of 5, 5, 4).  0 if none fits."""
-    return _evened_tile_rows(h, w, f, tf32x3_bottleneck_smem, limit)
+    """Rows of x [n*h*w, C] a block of the f32 tensor-core K5 takes (output
+    pixels, running across image rows and images, so h does not bound
+    them): the most multiples of 64 (the `wgmma` tile) whose shared memory
+    fits in `limit` bytes, else the most multiples of 8 (stage 3: 64; stage
+    4: 16).  0 if not even 8 fit."""
+    most = 0
+    while tf32x3_bottleneck_smem(most + 8, w, f) <= limit:
+        most += 8
+    return most - most % 64 if most >= 64 else most
+
+
+def tf32x3_plane_floats(c: int, f: int) -> int:
+    """f32 of K5's TF32 weight planes at C, F: big and small of w1, w2, w3."""
+    return 2 * (2 * c * f + 9 * f * f)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest TF32 value, ties away from zero (the
+    kernels' integer add and mask)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _planes_of(w: torch.Tensor) -> torch.Tensor:
+    """w [K, N] as the kernel's tiles of nb = min(N, 256) columns by 16 k:
+    column tile by column tile, k by k within one, each the big plane then
+    the small one, [nb][16] K-major with the 64-byte swizzle (16-byte chunk
+    c of row j at chunk c ^ ((j >> 1) & 3)), place 4c + e of a row holding k
+    c + 4e of the tile's 16."""
+    k, n = w.shape
+    nb = min(n, 256)
+    big = _tf32(w)
+    small = _tf32(w - big)
+    j = torch.arange(nb)[:, None]
+    at = torch.arange(4)[None, :] ^ ((j >> 1) & 3)  # where chunk c of row j is stored
+    tiles = []
+    for plane in (big, small):
+        # a tile row's place 4c + e holds k = c + 4e of its 16: [np, kt, j, c, e]
+        t = plane.reshape(k // 16, 4, 4, n // nb, nb).permute(3, 0, 4, 2, 1)
+        laid = torch.empty_like(t)
+        laid[:, :, j, at] = t
+        tiles.append(laid.reshape(n // nb, k // 16, nb * 16))
+    return torch.cat(tiles, dim=2).reshape(-1)
+
+
+def tf32x3_weight_planes_reference(w1: torch.Tensor, w2: torch.Tensor,
+                                   w3: torch.Tensor) -> torch.Tensor:
+    """Plain version of `tf32_weight_planes_kernel`: w1 [C, F], w2 [9, F, F]
+    (as [9F, F], its own tap order) and w3 [F, C] in f32 as the planes K5
+    reads, [tf32x3_plane_floats(C, F)] f32."""
+    f = w1.shape[1]
+    return torch.cat([_planes_of(w1.float()), _planes_of(w2.float().reshape(9 * f, f)),
+                      _planes_of(w3.float())])
+
+
+def tf32x3_weight_planes(w1: torch.Tensor, w2: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:
+    """K5's TF32 weight planes (`tf32x3_weight_planes_reference`), on a CUDA
+    tensor by the kernel the f32 K5 launches before each bottleneck
+    (`macsa_tf32_weight_planes`; counted as "tf32_weight_planes")."""
+    if w1.device.type == "cpu":
+        return tf32x3_weight_planes_reference(w1, w2, w3)
+    return _launch_planes(w1, w2, w3)
+
+
+@cuda_lib.on_tensor_device
+def _launch_planes(w1, w2, w3) -> torch.Tensor:
+    c, f = w1.shape
+    _check_tensors(torch.float32, [("w1", w1, None, (c, f)), ("w2", w2, None, (9, f, f)),
+                                   ("w3", w3, None, (f, c))])
+    planes = torch.empty(tf32x3_plane_floats(c, f), device=w1.device)
+    status = cuda_lib.library().macsa_tf32_weight_planes(
+        w1.data_ptr(), w2.data_ptr(), w3.data_ptr(), planes.data_ptr(), c, f,
+        cuda_lib.stream_handle(w1.device))
+    cuda_lib.check(status, "macsa_tf32_weight_planes")
+    cuda_lib.launch_counts["tf32_weight_planes"] += 1
+    return planes
 
 
 def bottleneck_variant(dtype: torch.dtype, h: int, w: int, c: int, f: int) -> str:
     """Which K5 kernel takes an [n*h*w, c] block of width f on a CUDA
     tensor: with f one of 64, 128, 256, 512 (the ResNet widths) and c a
-    multiple of 128, "wgmma" in bf16 and "tf32x3" in f32 where an image row
-    is narrow enough for one output row's a1 and a2 to fit in shared
-    memory; else "simt"."""
+    multiple of 128, "wgmma" in bf16 where an image row is narrow enough
+    for one output row's a1 and a2 to fit in shared memory, and "tf32x3"
+    in f32 where a tile of 8 rows with its halo does; else "simt"."""
     if f in WGMMA_F and c >= 128 and c % 128 == 0:
         if dtype == torch.bfloat16 and wgmma_tile_rows(h, w, f) > 0:
             return "wgmma"
@@ -310,11 +386,16 @@ def _launch_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w) -> t
     variant = bottleneck_variant(x2.dtype, h, w, c, f)
     pointers = [t.data_ptr() for t in (x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, out)]
     stream = cuda_lib.stream_handle(x2.device)
-    if variant in ("wgmma", "tf32x3"):
+    if variant == "wgmma":
         _check_aligned([("x2", x2), ("w1", w1), ("w2", w2), ("w3", w3)])
-        tile_rows = (wgmma_tile_rows if variant == "wgmma" else tf32x3_tile_rows)(h, w, f)
-        entry = getattr(cuda_lib.library(), f"macsa_fused_bottleneck_{variant}")
-        status = entry(*pointers, n, h, w, c, f, tile_rows, stream)
+        status = cuda_lib.library().macsa_fused_bottleneck_wgmma(
+            *pointers, n, h, w, c, f, wgmma_tile_rows(h, w, f), stream)
+    elif variant == "tf32x3":
+        _check_aligned([("x2", x2)])
+        # the weights' TF32 planes, written by the entry's first kernel
+        planes = torch.empty(tf32x3_plane_floats(c, f), device=x2.device)
+        status = cuda_lib.library().macsa_fused_bottleneck_tf32x3(
+            *pointers, planes.data_ptr(), n, h, w, c, f, tf32x3_tile_rows(h, w, f), stream)
     else:
         status = cuda_lib.library().macsa_fused_bottleneck(
             *pointers, n, h, w, c, f, int(x2.dtype == torch.bfloat16), stream)

@@ -379,7 +379,7 @@ def test_wgmma_wrappers_are_generated_with_both_operand_forms():
     with the transpose bits as template arguments (K-major B for Q K^T)."""
     gen = runpy.run_path(str(CSRC / "gen_wgmma_ops.py"))
     assert set(KEY_PASSES) <= set(gen["WIDTHS"])
-    text = gen["HEADER"] + "".join(gen["op"](n) for n in gen["WIDTHS"]) + gen["FOOTER"]
+    text = gen["render"]()
     assert (CSRC / "wgmma_ops.cuh").read_text() == text
     assert text.count("template <int TA = 0, int TB = 1>") == len(gen["WIDTHS"])
     assert text.count("template <int TB = 1>") == len(gen["WIDTHS"])

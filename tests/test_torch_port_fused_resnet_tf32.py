@@ -3,18 +3,22 @@ emulation of `csrc/fused_resnet_tf32.cu`, step by step.
 
 Every f32 product is split as the kernels split it (`cvt.rna.tf32.f32`,
 taken as an integer add and mask: big = tf32(x), small = tf32(x - big)) and
-taken as three TF32 products, small*big + big*small + big*big, 8 columns
-of the inner dimension at a time (one `mma.sync.m16n8k8` step); each ring
-stage of 16 k is summed from zero and added to the accumulator in f32.
-The epilogues round (acc * mul) and + add separately, add the residual in
-f32 and keep a1, a2 and the output in f32.  K5 goes tile by tile: TH
-output rows with a one-row halo (zero outside the image), a1 with its zero
-pixel row, the nine tap-shifted products over K = 9F in w2's own order,
-ragged last tiles.  The emulation is held against the port's plain
+taken as three TF32 products, small*big + big*small + big*big, 8 k of the
+inner dimension at a time (K4: one `mma.sync.m16n8k8` step, k in order; K5:
+one `wgmma` m64nNk8 step, k 4t + 2s and 4t + 2s + 1 of lane t); each 16 k
+is summed from zero and added to the accumulator in f32.  The epilogues
+round (acc * mul) and + add separately, add the residual in f32 and keep
+a1, a2 and the output in f32.  K5 goes block by block: tiles of rows of x
+running across image rows and images, a1 on the tile and a halo of w + 1
+rows each side (rows outside x clamped, never read), the zero row where a
+tap leaves its image, the nine tap-shifted products over K = 9F in w2's own
+order, ragged last tiles.  The emulation is held against the port's plain
 versions and the JAX experiment's Pallas kernels in interpret mode with
-the card's tolerances (K4 1e-5, K5 1e-4 of max|ref|), and one TF32
-product is shown to miss them.  The rows per block, the shared memory and
-the bank layout of the fragment reads are held against the CUDA source.
+the card's tolerances (K4 1e-5, K5 1e-4 of max|ref|), and one TF32 product
+is shown to miss them.  K5's weight planes (split once a call, K-major,
+64-byte swizzle, k permuted in a tile), the rows per block, the shared
+memory and the bank layout of the operand reads are held against the CUDA
+source.
 """
 
 import importlib.util
@@ -66,17 +70,23 @@ def split(x):
     return big, tf32(x - big)
 
 
-def product(a, b, terms=3):
-    """a [M, K] @ b [K, N] as the kernels take it: K in ring stages of 16,
-    each stage summed from zero 8 k at a time (small*big, then big*small,
-    then big*big; with `terms` 1 big*big alone) and added to the
-    accumulator in f32."""
+# the k of a 16-k chunk each k8 step takes: K4's `mma.sync` in order; K5's
+# `wgmma` k 4t + 2s and 4t + 2s + 1 of lane t (the planes' order)
+K4_STEPS = [list(range(0, 8)), list(range(8, 16))]
+K5_STEPS = [[4 * t + 2 * s + e for t in range(4) for e in range(2)] for s in range(2)]
+
+
+def product(a, b, terms=3, steps=K4_STEPS):
+    """a [M, K] @ b [K, N] as the kernels take it: K in chunks of 16, each
+    summed from zero one k8 step at a time (small*big, then big*small, then
+    big*big; with `terms` 1 big*big alone) and added to the accumulator in
+    f32."""
     (a_big, a_small), (b_big, b_small) = split(a), split(b)
     acc = torch.zeros(a.shape[0], b.shape[1])
     for k0 in range(0, a.shape[1], BK):
         part = torch.zeros_like(acc)
-        for k8 in range(k0, min(k0 + BK, a.shape[1]), 8):
-            step = slice(k8, k8 + 8)
+        for ks in steps:
+            step = [k0 + k for k in ks]
             if terms == 3:
                 part = part + a_small[:, step] @ b_big[step]
                 part = part + a_big[:, step] @ b_small[step]
@@ -98,43 +108,40 @@ def emulate_k4(x2, w, mul, add, residual, relu, terms=3):
     return torch.clamp_min(y, 0.0) if relu else y
 
 
-def tap_rows(m2, w, zero_pixel):
-    """[9, m2] a1 pixel read by output pixel m at tap (dy, dx): m + dy*w +
-    dx - 1, or the zero pixel where its column leaves the image."""
-    m = torch.arange(m2)
-    col = m % w
+def tap_rows(m0, tile_rows, rows, h, w, zero_row):
+    """[9, tile_rows] a1 row read by output row i (row m0 + i of x) at tap
+    (dy, dx): i + dy*w + dx (a1 row j holds x row m0 - w - 1 + j), or the
+    zero row where the pixel's row r + dy - 1 or column col + dx - 1 leaves
+    its image, or the row is past the tile or past x."""
+    i = torch.arange(tile_rows)
+    q = m0 + i
+    inside = q < rows
+    r, col = (q // w) % h, q % w
     taps = []
     for tap in range(9):
         dy, dx = divmod(tap, 3)
-        inside = (col + dx - 1 >= 0) & (col + dx - 1 < w)
-        taps.append(torch.where(inside, m + dy * w + dx - 1, zero_pixel))
+        ok = inside & (r + dy >= 1) & (r + dy <= h) & (col + dx >= 1) & (col + dx <= w)
+        taps.append(torch.where(ok, i + dy * w + dx, zero_row))
     return torch.stack(taps)
 
 
 def emulate_k5(x2, w1, mul1, add1, w2, mul2, add2, w3, mul3, add3, n, h, w, tile_rows,
                terms=3):
     """`bottleneck_tf32x3_kernel`, block by block."""
-    c, f = w1.shape
+    rows, f = x2.shape[0], w1.shape[1]
     relu_bn = lambda acc, mul, add: torch.clamp_min(bn(acc, mul, add), 0.0)
+    prod = lambda a, b: product(a, b, terms, K5_STEPS)
     out = torch.full_like(x2, float("nan"))
-    zero_pixel = (tile_rows + 2) * w
-    for img in range(n):
-        img_row0 = img * h * w
-        for r0 in range(0, h, tile_rows):
-            rows = min(tile_rows, h - r0)
-            lo, hi = max(r0 - 1, 0), min(r0 + rows + 1, h)
-            # a1's local row rr holds image row r0 - 1 + rr; the rest stays zero
-            a1 = torch.zeros(zero_pixel + 1, f)
-            first = (lo - r0 + 1) * w
-            a1[first:first + (hi - lo) * w] = relu_bn(
-                product(x2[img_row0 + lo * w:img_row0 + hi * w], w1, terms), mul1, add1)
-            m2 = rows * w
-            a_taps = a1[tap_rows(m2, w, zero_pixel)]                  # [9, m2, F]
-            a_conv2 = a_taps.permute(1, 0, 2).reshape(m2, 9 * f)     # k = tap * F + channel
-            a2 = relu_bn(product(a_conv2, w2.reshape(9 * f, f), terms), mul2, add2)
-            rows_out = slice(img_row0 + r0 * w, img_row0 + r0 * w + m2)
-            y = bn(product(a2, w3, terms), mul3, add3) + x2[rows_out]
-            out[rows_out] = torch.clamp_min(y, 0.0)
+    r1 = tile_rows + 2 * w + 2  # a1's rows; row r1 is zero
+    for m0 in range(0, rows, tile_rows):
+        q = (m0 - w - 1 + torch.arange(r1)).clamp(0, rows - 1)  # rows outside x: never read
+        a1 = torch.cat([relu_bn(prod(x2[q], w1), mul1, add1), torch.zeros(1, f)])
+        a_taps = a1[tap_rows(m0, tile_rows, rows, h, w, r1)]        # [9, tile_rows, F]
+        a_conv2 = a_taps.permute(1, 0, 2).reshape(tile_rows, 9 * f)  # k = tap * F + channel
+        a2 = relu_bn(prod(a_conv2, w2.reshape(9 * f, f)), mul2, add2)
+        kept = torch.arange(m0, min(m0 + tile_rows, rows))
+        y = bn(prod(a2, w3), mul3, add3)[:len(kept)] + x2[kept]
+        out[kept] = torch.clamp_min(y, 0.0)
     return out
 
 
@@ -180,11 +187,12 @@ def test_k4_emulation_matches_references(rng, m, k, n, has_res, relu):
     assert _rel(got, want_jax) <= K4_TOL
 
 
-# (n, h, w, C, F, limit): the rows a block takes come from `tf32x3_tile_rows`,
-# the whole image at 6 x 10; a shared-memory limit that leaves 4 rows of 7
-# (tiles of 4 and 3: a ragged last tile, halo rows inside the image)
-@pytest.mark.parametrize("n,h,w,c,f,limit,tile_rows", [(2, 6, 10, 128, 64, None, 6),
-                                                       (2, 7, 8, 128, 64, 104_000, 4)])
+# (n, h, w, C, F, limit, tile_rows): the rows a block takes come from
+# `tf32x3_tile_rows`; limits that leave 16 and 8 rows a block: tiles that
+# start and end inside image rows and across two images, a ragged last tile
+@pytest.mark.parametrize("n,h,w,c,f,limit,tile_rows", [(2, 6, 10, 128, 64, None, 256),
+                                                       (2, 7, 8, 128, 64, 136_000, 16),
+                                                       (3, 4, 6, 128, 64, 132_000, 8)])
 def test_k5_emulation_matches_references(rng, n, h, w, c, f, limit, tile_rows):
     args = _k5_inputs(rng, n, h, w, c, f)
     kw = {} if limit is None else {"limit": limit}
@@ -208,7 +216,7 @@ def test_one_tf32_product_misses_the_f32_tolerances(rng):
     assert err[1] > 10 * K4_TOL and err[3] < K4_TOL, err
     args = list(map(torch.from_numpy, _k5_inputs(rng, 1, 6, 10, 128, 64)))
     want = tfr.bottleneck_reference(*args, 1, 6, 10)
-    err = {terms: _rel(emulate_k5(*args, 1, 6, 10, 6, terms), want) for terms in (1, 3)}
+    err = {terms: _rel(emulate_k5(*args, 1, 6, 10, 16, terms), want) for terms in (1, 3)}
     assert err[1] > K5_TOL and err[3] < K5_TOL, err
 
 
@@ -228,16 +236,24 @@ def test_split_rounds_to_nearest_ties_away():
 
 
 def test_tap_rows_read_the_zero_pixel_past_the_edges():
-    """Tap (dy, dx) of output pixel (r, col) is a1 pixel (r + dy, col + dx -
-    1); columns -1 and w read the zero pixel."""
-    w, m2, zero = 5, 10, 99
-    taps = tap_rows(m2, w, zero)
-    for m in range(m2):
-        r, col = divmod(m, w)
-        for tap in range(9):
-            dy, dx = divmod(tap, 3)
-            want = (r + dy) * w + col + dx - 1 if 0 <= col + dx - 1 < w else zero
-            assert taps[tap, m] == want
+    """Tap (dy, dx) of output row i, pixel (r, col) of its image, reads the
+    a1 row of pixel (r + dy - 1, col + dx - 1) of the same image, a1 row j
+    holding x row m0 - w - 1 + j; taps that leave the image, and rows past
+    x, read the zero row."""
+    n, h, w, tile_rows, zero = 3, 4, 5, 16, 99
+    rows = n * h * w
+    for m0 in range(0, rows, tile_rows):
+        taps = tap_rows(m0, tile_rows, rows, h, w, zero)
+        for i in range(tile_rows):
+            q = m0 + i
+            img, r, col = q // (h * w), (q // w) % h, q % w
+            for tap in range(9):
+                dy, dx = divmod(tap, 3)
+                rr, cc = r + dy - 1, col + dx - 1
+                if q < rows and 0 <= rr < h and 0 <= cc < w:
+                    assert taps[tap, i] - (w + 1) + m0 == (img * h + rr) * w + cc
+                else:
+                    assert taps[tap, i] == zero
 
 
 # ---------------------------------------------------------------------------
@@ -245,40 +261,53 @@ def test_tap_rows_read_the_zero_pixel_past_the_edges():
 # ---------------------------------------------------------------------------
 
 # (h = w, C, F) of the identity bottlenecks of ResNet-152's four stages at 224^2,
-# and the rows a block of the f32 tensor-core K5 takes there
-STAGE_ROWS = [((56, 256, 64), 4), ((28, 512, 128), 5), ((14, 1024, 256), 5),
-              ((7, 2048, 512), 4)]
+# and the rows of x a block of the f32 tensor-core K5 takes there
+STAGE_ROWS = [((56, 256, 64), 192), ((28, 512, 128), 128), ((14, 1024, 256), 64),
+              ((7, 2048, 512), 16)]
+
+
+def k5_smem_from_source(tile_rows, w, f):
+    """`k5_smem` of the CUDA source, from its own constants."""
+    plane_row = BK * 4
+    b_tile = constant("kMaxNB") * plane_row * 2
+    x_ring = constant("kXSlots") * 16 * plane_row
+    a2 = tile_rows if f > constant("kMaxNB") else 0
+    return (1024 + constant("kStages") * b_tile + WARPS * x_ring
+            + (tile_rows + 2 * w + 2 + 1 + a2) * (4 * f + 64) + 2 * constant("kStages") * 8)
 
 
 def test_shared_memory_formula_is_the_source():
-    """The ring (two stages, each the largest A + B chunk: 112 rows of x by
-    16 + 4 floats and 16 rows of w by 256 + 8) and the staging tiles (8 warps
-    by 32 x (32 + 8)) are the source's constants, and its a1, a2 formula is
-    the Python one's."""
-    ring_stage = constant("kRingStage")
-    assert ring_stage == 112 * (BK + 4) + BK * (256 + 8)
-    assert tfr._TF32X3_RING == constant("kRingStages") * ring_stage
-    assert tfr._TF32X3_STAGING == WARPS * constant("kStageRows") * (32 + 8)
-    assert "constexpr int kLdA = kBK + 4;" in SOURCE
-    assert "constexpr int kStageLd = 32 + 8;" in SOURCE
-    assert "const long long need = ((tile_rows + 2LL) * w + 1) * (f + 4);" in SOURCE
-    assert "const long long a2 = static_cast<long long>(tile_rows) * w * (f + 4);" in SOURCE
-    assert "return (kRingFloats + a1_floats(tile_rows, w, f) + a2) * 4;" in SOURCE
-    assert '"macsa_fused_bottleneck_tf32x3"' in Path(tfr.cuda_lib.__file__).read_text()
+    """The weight ring (three stages of a 256-column tile of 16 k, big and
+    small planes), each warp's ring of x rows (three slots of 16 rows by
+    16 k), a1 with its halo and zero row (and a2's own rows at F = 512) in
+    rows of F + 16 floats, the barriers: the Python formula is the
+    source's."""
+    assert "constexpr int kBTile = kMaxNB * kPlaneRow * 2;" in SOURCE
+    assert "constexpr int kXRing = kXSlots * 16 * kPlaneRow;" in SOURCE
+    assert "return tile_rows + 2 * w + 2; }" in SOURCE
+    assert "return f > kMaxNB ? tile_rows : 0; }" in SOURCE
+    assert ("return kAlign + static_cast<long long>(kStages) * kBTile + kWarps * kXRing +\n"
+            "         (a1_rows(tile_rows, w) + 1LL + a2_rows(tile_rows, f)) * (4 * f + 64) + "
+            "2 * kStages * 8;") in SOURCE
+    assert "constexpr int LD = F + 16;" in SOURCE
+    for f in tfr.WGMMA_F:
+        for w in (1, 7, 14, 28, 56, 100):
+            for rows in (8, 16, 64, 128, 192, 256):
+                assert tfr.tf32x3_bottleneck_smem(rows, w, f) == k5_smem_from_source(rows, w, f)
+    assert '"macsa_fused_bottleneck_tf32x3": [_P] * 12 + [_I] * 6 + [_P]' in Path(
+        tfr.cuda_lib.__file__).read_text()
 
 
 @pytest.mark.parametrize("stage,rows", STAGE_ROWS)
 def test_tf32x3_tile_rows(stage, rows):
     """The rows per block at each stage: they fit in the 227 KB a block may
-    take, one more would not or would not even the tiles out, and the stage
+    take, the next multiple of 64 (below 64: of 8) would not, and the stage
     runs "tf32x3"."""
     h, c, f = stage
     assert tfr.tf32x3_tile_rows(h, h, f) == rows
     assert tfr.tf32x3_bottleneck_smem(rows, h, f) <= tfr.SMEM_PER_BLOCK == 227 * 1024
-    tiles = -(-h // rows)
-    assert rows == -(-h // tiles)  # evened: no tile is more than a row shorter
-    if rows < h:  # the fewest tiles that fit
-        assert tfr.tf32x3_bottleneck_smem(-(-h // (tiles - 1)), h, f) > tfr.SMEM_PER_BLOCK
+    step = 64 if rows >= 64 else 8
+    assert tfr.tf32x3_bottleneck_smem(rows + step, h, f) > tfr.SMEM_PER_BLOCK
     assert tfr.bottleneck_variant(F32, h, h, c, f) == "tf32x3"
 
 
@@ -288,32 +317,108 @@ def test_tf32x3_tile_rows_none_fits():
     assert tfr.tf32x3_tile_rows(14, 14, 256, limit=100_000) == 0
 
 
+# ---------------------------------------------------------------------------
+# the weight planes
+# ---------------------------------------------------------------------------
+
+def plane_offsets(k, n):
+    """[k, n] float offsets of w's elements in its big plane (the small one
+    is nb * 16 floats on): tile (column tile, 16-k tile), row j of the tile
+    its column, place 4c + e of the row holding k = c + 4e of the tile, the
+    16-byte chunk c stored at chunk c ^ ((j >> 1) & 3)."""
+    nb = min(n, 256)
+    kk, nn = torch.meshgrid(torch.arange(k), torch.arange(n), indexing="ij")
+    tile = (nn // nb) * (k // 16) + kk // 16
+    j, c, e = nn % nb, (kk % 16) % 4, (kk % 16) // 4
+    return tile * nb * 32 + j * 16 + 4 * (c ^ ((j >> 1) & 3)) + e
+
+
+@pytest.mark.parametrize("stage", [s for s, _ in STAGE_ROWS])
+def test_weight_planes_plain_version_is_the_split_of_wt(stage):
+    """`tf32x3_weight_planes_reference` (the card test holds the kernel to
+    it bit for bit) puts tf32(w) and tf32(w - tf32(w)), rounded to nearest
+    ties away, of w1, w2 and w3 where `plane_offsets` says."""
+    _, c, f = stage
+    g = torch.Generator().manual_seed(7)
+    w1, w2, w3 = (torch.randn(*s, generator=g) for s in ((c, f), (9, f, f), (f, c)))
+    w1[0, :4] = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12, 0.0])  # ties
+    planes = tfr.tf32x3_weight_planes_reference(w1, w2, w3).view(torch.int32)
+    assert planes.numel() == tfr.tf32x3_plane_floats(c, f)
+    start = 0
+    for w in (w1, w2.reshape(9 * f, f), w3):
+        k, n = w.shape
+        big = tf32(w)
+        at = start + plane_offsets(k, n)
+        assert torch.equal(planes[at], big.view(torch.int32))
+        assert torch.equal(planes[at + min(n, 256) * 16], tf32(w - big).view(torch.int32))
+        start += 2 * k * n
+    assert tf32(w1[0, :4]).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0, 0.0]
+
+
+@pytest.mark.parametrize("n", [64, 128, 256, 512])
+def test_plane_addresses_cover_each_element_once(n):
+    """Over a weight [48, n], the big and small planes' offsets take each
+    float of the 2 * 48 * n exactly once; within a tile row the swizzle
+    keeps each 16-byte chunk inside its 64-byte row."""
+    off = plane_offsets(48, n)
+    both = torch.cat([off.flatten(), (off + min(n, 256) * 16).flatten()])
+    assert torch.equal(torch.sort(both).values, torch.arange(2 * 48 * n))
+    assert ((off % (min(n, 256) * 32)) // 16 == torch.arange(n)[None, :] % min(n, 256)).all()
+
+
+def test_k8_steps_take_the_lane_rows_k():
+    """wgmma step s reads places 8s .. 8s + 7 of each plane row; A's lane t
+    gives place t (registers 0, 1) and t + 4 (2, 3).  With the planes' k
+    order that is k 4t + 2s and 4t + 2s + 1: the two floats a lane loads
+    for the step from its 16-byte row chunk 4t .. 4t + 3, and each k once."""
+    k_at = lambda place: place // 4 + 4 * (place % 4)  # place 4c + e holds k = c + 4e
+    for s in range(2):
+        for t in range(4):
+            assert k_at(8 * s + t) == 4 * t + 2 * s
+            assert k_at(8 * s + t + 4) == 4 * t + 2 * s + 1
+        assert sorted(k_at(8 * s + i) for i in range(8)) == sorted(K5_STEPS[s])
+    assert sorted(K5_STEPS[0] + K5_STEPS[1]) == list(range(16))
+    assert "const Split s = split(src[4LL * e * j.n]);" in SOURCE  # chunk c: k = c + 4e
+
+
 LANES = torch.arange(32)
 G, T = LANES // 4, LANES % 4
 
 
-@pytest.mark.parametrize("ld,what", [(BK + 4, "ring A chunk"), *[
-    (f + 4, f"a1 and a2 at F = {f}") for f in tfr.WGMMA_F]])
-def test_ldmatrix_reads_are_free_of_bank_conflicts(ld, what):
-    """An A fragment is one `ldmatrix.x4`: each of its four 8 x 4 matrices
-    reads 16 bytes from each of 8 consecutive rows of `ld` floats; the 8
-    row chunks lie on 8 different 16-byte bank groups.  Lane l gives row
-    (l & 7) + 8 ((l >> 3) & 1) at column 4 (l >> 4): the fragment's
-    registers come out as the m16n8k8 A fragment (row g + 8 (e & 1),
-    column t + 4 (e >> 1))."""
-    assert ld % 4 == 0  # 16-byte rows for ldmatrix and cp.async
+def test_ldmatrix_reads_are_free_of_bank_conflicts():
+    """K4's A fragment is one `ldmatrix.x4` from a ring A chunk of rows of
+    16 + 4 floats: each of its four 8 x 4 matrices reads 16 bytes from each
+    of 8 consecutive rows; the 8 row chunks lie on 8 different 16-byte bank
+    groups.  Lane l gives row (l & 7) + 8 ((l >> 3) & 1) at column
+    4 (l >> 4): the fragment's registers come out as the m16n8k8 A fragment
+    (row g + 8 (e & 1), column t + 4 (e >> 1))."""
+    ld = BK + 4
+    assert "constexpr int kLdA = kBK + 4;" in SOURCE
     for r0 in range(0, 64, 8):
         groups = [((r0 + r) * ld // 4) % 8 for r in range(8)]
-        assert len(set(groups)) == 8, (what, r0)
-    # the matrices' rows and columns are the fragment's
+        assert len(set(groups)) == 8, r0
     rows = (LANES & 7) + 8 * ((LANES >> 3) & 1)
     cols = 4 * (LANES >> 4)
     for e in range(4):  # register e is matrix e: lanes 8e .. 8e + 7 give its rows
         mat = slice(8 * e, 8 * e + 8)
         assert (rows[mat] == torch.arange(8) + 8 * (e & 1)).all()
         assert (cols[mat] == 4 * (e >> 1)).all()
-    # within a matrix, lane 4g + t receives the 32-bit element (row g, column t)
     assert torch.equal(G, LANES // 4) and torch.equal(T, LANES % 4)
+
+
+@pytest.mark.parametrize("ld,what", [(BK, "a warp's ring of x rows"), *[
+    (f + 16, f"a1 and a2 at F = {f}") for f in tfr.WGMMA_F]])
+def test_a_row_reads_are_free_of_bank_conflicts(ld, what):
+    """K5's lane 4g + t reads 16 bytes of its rows g and g + 8 at float
+    4t: a quarter warp's 16-byte loads (lanes 8q .. 8q + 7: rows 2q and
+    2q + 1, consecutive rows of a1, a2 or the x ring) cover 32 banks once."""
+    for r0 in range(0, 64, 2):
+        for q in range(4):
+            lanes = torch.arange(8 * q, 8 * q + 8)
+            g, t = lanes // 4, lanes % 4
+            words = (r0 + g - 2 * q) * ld + 4 * t
+            chunk = words[:, None] + torch.arange(4)[None, :]
+            assert len(set((chunk.flatten() % 32).tolist())) == 32, (what, r0, q)
 
 
 @pytest.mark.parametrize("pw", [64, 128, 256])

@@ -684,6 +684,21 @@ def test_bottleneck_kernel_matches_plain(cuda, dtype, n, h, w, c, f):
     assert _rel_err(out, fr.bottleneck_reference(*cast, n, h, w)) <= K5_TOL[dtype]
 
 
+@pytest.mark.parametrize("c,f", [(256, 64), (512, 128), (1024, 256), (2048, 512)])
+def test_tf32_weight_planes_match_plain(cuda, c, f):
+    """The f32 K5's weight planes from its kernel (`tf32_weight_planes_kernel`,
+    launched before each f32 bottleneck) equal the plain version's bit for
+    bit at the four ResNet stages' widths."""
+    g = torch.Generator(cuda).manual_seed(9)
+    w1, w2, w3 = (torch.randn(*s, device=cuda, generator=g) for s in ((c, f), (9, f, f), (f, c)))
+    cuda_lib.reset_launch_counts()
+    got = fr.tf32x3_weight_planes(w1, w2, w3)
+    torch.cuda.synchronize()
+    assert dict(cuda_lib.launch_counts) == {"tf32_weight_planes": 1}
+    want = fr.tf32x3_weight_planes_reference(w1.cpu(), w2.cpu(), w3.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
 def test_fused_resnet_gradients_match_plain_autograd(cuda):
     """Gradients through K4's and K5's autograd Functions against autograd
     of the plain versions, f32 with TF32 off."""
