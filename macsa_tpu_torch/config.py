@@ -84,9 +84,10 @@ class DeepseekV2Config:
     each MoE layer's `n_routed_experts` experts, and rank `ep_rank` holds
     `experts_held` of them, `[ep_rank * n / ep_size, (ep_rank + 1) * n / ep_size)`.
     The router keeps its published width (all `n_routed_experts`).  What
-    V2-Lite fixes and the module builds alone (no q-LoRA, the softmax
-    router's greedy top-k with its weights as they are, every layer after
-    the dense ones a MoE layer) `from_hf` checks."""
+    V2-Lite fixes (no q-LoRA, the softmax router's greedy top-k with its
+    weights as they are, every layer after the dense ones a MoE layer)
+    `from_hf` checks; the sigmoid router, renormalization, scaling and
+    NoPE fields are `KimiLinearConfig.deepseek()`'s."""
 
     vocab_size: int = 102400
     hidden_size: int = 2048
@@ -113,6 +114,14 @@ class DeepseekV2Config:
     ep_size: int = 8
     ep_rank: int = 0
     dtype: str = "float32"
+    # the router: "softmax" (DeepSeek-V2) or "sigmoid" (with a fixed
+    # per-expert bias that only the choice reads); the weights of the
+    # chosen experts renormalized to sum 1 or not, then times the scaling
+    scoring_func: str = "softmax"
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    # latent attention without rotary positions (the 64-wide parts kept)
+    mla_use_nope: bool = False
 
     def __post_init__(self):
         if self.n_routed_experts % self.ep_size or not 0 <= self.ep_rank < self.ep_size:
@@ -163,13 +172,110 @@ class DeepseekV2Config:
 
 
 @dataclasses.dataclass(frozen=True)
+class KimiLinearConfig:
+    """Kimi Linear used as FCMF's text backbone (`models/kimi_linear.py`).
+
+    The shape fields of moonshotai/Kimi-Linear-48B-A3B-Instruct's
+    `config.json` (its `linear_attn_config` group spelled out as `kda_*`
+    fields), plus the expert-parallel share this process holds, as
+    `DeepseekV2Config` has it: `ep_size` processes share each MoE layer's
+    `num_experts`, and rank `ep_rank` holds `num_experts / ep_size` of them.
+    Layer i (1-based, the config's numbering) is a KDA layer where it is in
+    `kda_layers`, else a latent-attention layer without rotary positions.
+    The latent attention and the MoE layers are `models/deepseek_v2.py`'s,
+    built from `deepseek()`.  What the modules build (no q-LoRA, one expert
+    group, the sigmoid router) `from_hf` checks."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2304
+    intermediate_size: int = 9216  # the dense layer's SwiGLU width
+    moe_intermediate_size: int = 1024  # one expert's width
+    num_hidden_layers: int = 27
+    first_k_dense_replace: int = 1
+    num_attention_heads: int = 32
+    num_experts: int = 256
+    num_shared_experts: int = 1
+    num_experts_per_token: int = 8
+    routed_scaling_factor: float = 2.446
+    moe_renormalize: bool = True
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rms_norm_eps: float = 1e-5
+    kda_layers: tuple = (1, 2, 3, 5, 6, 7, 9, 10, 11, 13, 14, 15, 17, 18, 19, 21, 22, 23,
+                         25, 26)
+    kda_num_heads: int = 32
+    kda_head_dim: int = 128
+    short_conv_kernel_size: int = 4
+    ep_size: int = 32
+    ep_rank: int = 0
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        self.deepseek()  # the share's checks
+
+    def is_kda(self, index: int) -> bool:
+        """Layer `index` (0-based) is a KDA layer."""
+        return index + 1 in self.kda_layers
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _torch_dtype(self.dtype)
+
+    def deepseek(self) -> DeepseekV2Config:
+        """The shapes `models/deepseek_v2.py`'s latent attention, MLPs and
+        MoE layer read: NoPE attention at the softmax scale qk_head_dim^-1/2,
+        the sigmoid router renormalized (or not) and scaled."""
+        return DeepseekV2Config(
+            vocab_size=self.vocab_size, hidden_size=self.hidden_size,
+            intermediate_size=self.intermediate_size,
+            moe_intermediate_size=self.moe_intermediate_size,
+            num_hidden_layers=self.num_hidden_layers,
+            first_k_dense_replace=self.first_k_dense_replace,
+            num_attention_heads=self.num_attention_heads, n_routed_experts=self.num_experts,
+            n_shared_experts=self.num_shared_experts,
+            num_experts_per_tok=self.num_experts_per_token, kv_lora_rank=self.kv_lora_rank,
+            qk_nope_head_dim=self.qk_nope_head_dim, qk_rope_head_dim=self.qk_rope_head_dim,
+            v_head_dim=self.v_head_dim, rope_factor=1.0, rms_norm_eps=self.rms_norm_eps,
+            ep_size=self.ep_size, ep_rank=self.ep_rank, dtype=self.dtype,
+            scoring_func="sigmoid", norm_topk_prob=self.moe_renormalize,
+            routed_scaling_factor=self.routed_scaling_factor, mla_use_nope=True)
+
+    @classmethod
+    def from_hf(cls, hf: dict, **overrides) -> "KimiLinearConfig":
+        """From a `config.json` of `model_type` kimi_linear; raises where it
+        asks for what the modules do not build."""
+        built = {"q_lora_rank": None, "num_expert_group": 1, "topk_group": 1,
+                 "moe_router_activation_func": "sigmoid", "moe_layer_freq": 1,
+                 "mla_use_nope": True, "rope_scaling": None, "hidden_act": "silu",
+                 "num_nextn_predict_layers": 0}
+        other = {k: hf[k] for k, v in built.items() if k in hf and hf[k] != v}
+        lin = hf.get("linear_attn_config") or {}
+        kda = tuple(lin.get("kda_layers", ()))
+        full = tuple(lin.get("full_attn_layers", ()))
+        if sorted(kda + full) != list(range(1, hf["num_hidden_layers"] + 1)):
+            other["linear_attn_config"] = lin
+        if hf.get("num_key_value_heads", hf["num_attention_heads"]) != hf["num_attention_heads"]:
+            other["num_key_value_heads"] = hf["num_key_value_heads"]
+        if other:
+            raise ValueError(f"not built: {other}")
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in hf.items() if k in fields}
+        kw.update(kda_layers=kda, kda_num_heads=lin["num_heads"], kda_head_dim=lin["head_dim"],
+                  short_conv_kernel_size=lin["short_conv_kernel_size"])
+        kw.update(overrides)
+        return cls(**kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class FCMFConfig:
     """FCMF encoder / classifier configuration
     (fcmf_framework/fcmf_pretraining.py:14-19, fcmf_multimodal.py:12-18)."""
 
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
-    # the text backbone: RoBERTa (ViSoBERT, XLM-R) or DeepSeek-V2
-    text: Union[TextEncoderConfig, DeepseekV2Config] = dataclasses.field(
+    # the text backbone: RoBERTa (ViSoBERT, XLM-R), DeepSeek-V2 or Kimi Linear
+    text: Union[TextEncoderConfig, DeepseekV2Config, KimiLinearConfig] = dataclasses.field(
         default_factory=TextEncoderConfig)
     num_imgs: int = 7
     num_roi: int = 4

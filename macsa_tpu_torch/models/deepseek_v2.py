@@ -170,19 +170,23 @@ class MLAttention(nn.Module):
         self.o_proj = Linear(n * cfg.v_head_dim, h, dt, device)
         self.scale = softmax_scale(cfg)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor, cos: torch.Tensor,
-                sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, cos: Optional[torch.Tensor],
+                sin: Optional[torch.Tensor]) -> torch.Tensor:
+        """`cos`, `sin`: the rope tables; None under `mla_use_nope`, where
+        the 64-wide parts enter the scores unrotated."""
         c = self.cfg
         b, l, _ = x.shape
         n, nope, rope, vd = (c.num_attention_heads, c.qk_nope_head_dim, c.qk_rope_head_dim,
                              c.v_head_dim)
         q = self.q_proj(x).view(b, l, n, nope + rope).transpose(1, 2)
-        q_nope, q_pe = q.split([nope, rope], -1)
         latent, k_pe = self.kv_a_proj_with_mqa(x).split([c.kv_lora_rank, rope], -1)
         kv = self.kv_b_proj(self.kv_a_layernorm(latent)).view(b, l, n, nope + vd).transpose(1, 2)
         k_nope, v = kv.split([nope, vd], -1)
-        q = torch.cat([q_nope, apply_rope(q_pe, cos, sin)], -1)
-        k_pe = apply_rope(k_pe.view(b, l, 1, rope).transpose(1, 2), cos, sin)
+        k_pe = k_pe.view(b, l, 1, rope).transpose(1, 2)
+        if not c.mla_use_nope:
+            q_nope, q_pe = q.split([nope, rope], -1)
+            q = torch.cat([q_nope, apply_rope(q_pe, cos, sin)], -1)
+            k_pe = apply_rope(k_pe, cos, sin)
         k = torch.cat([k_nope, k_pe.expand(b, n, l, rope)], -1)
         out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=self.scale)
         return self.o_proj(out.transpose(1, 2).reshape(b, l, n * vd))
@@ -206,21 +210,42 @@ class MLP(nn.Module):
 # ---------------------------------------------------------------------------
 
 class Router(nn.Module):
-    """Softmax over all experts of f32 logits, greedy top-k -> (experts
-    [T, k], weights [T, k] f32)."""
+    """Scores over all experts of f32 logits, greedy top-k -> (experts
+    [T, k], weights [T, k] f32).  `scoring_func` "softmax": the k largest
+    softmax scores are the weights.  "sigmoid" (Kimi Linear, DeepSeek-V3):
+    s = sigmoid(logits); the k largest s + `e_score_correction_bias` (a
+    fixed buffer, never trained) pick the experts; their s are the weights.
+    Then, with `norm_topk_prob`, the weights over their sum + 1e-20, and
+    times `routed_scaling_factor` where it is not 1."""
 
     def __init__(self, cfg: DeepseekV2Config, device=None):
         super().__init__()
         self.cfg = cfg
         self.weight = nn.Parameter(torch.empty(cfg.n_routed_experts, cfg.hidden_size,
                                                device=device))
+        if cfg.scoring_func == "sigmoid":
+            self.register_buffer("e_score_correction_bias",
+                                 torch.zeros(cfg.n_routed_experts, device=device))
 
     def init_weights_(self, generator: torch.Generator, std: float) -> None:
         self.weight.normal_(0.0, std, generator=generator)
+        if self.cfg.scoring_func == "sigmoid":
+            self.e_score_correction_bias.normal_(0.0, std, generator=generator)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        scores = F.linear(x.float(), self.weight.float()).softmax(-1)
-        weight, experts = torch.topk(scores, self.cfg.num_experts_per_tok, dim=-1)
+        c = self.cfg
+        logits = F.linear(x.float(), self.weight.float())
+        if c.scoring_func == "sigmoid":
+            scores = logits.sigmoid()
+            _, experts = torch.topk(scores + self.e_score_correction_bias, c.num_experts_per_tok,
+                                    dim=-1)
+            weight = scores.gather(-1, experts)
+        else:
+            weight, experts = torch.topk(logits.softmax(-1), c.num_experts_per_tok, dim=-1)
+        if c.norm_topk_prob:
+            weight = weight / (weight.sum(-1, keepdim=True) + 1e-20)
+        if c.routed_scaling_factor != 1:
+            weight = weight * c.routed_scaling_factor
         return experts, weight
 
 

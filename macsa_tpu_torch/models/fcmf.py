@@ -29,10 +29,12 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
-from macsa_tpu_torch.config import DeepseekV2Config, FCMFConfig, TextEncoderConfig
+from macsa_tpu_torch.config import (DeepseekV2Config, FCMFConfig, KimiLinearConfig,
+                                    TextEncoderConfig)
 from macsa_tpu_torch.models import layers
 from macsa_tpu_torch.models.box_attention import BoxMultiHeadedAttention
 from macsa_tpu_torch.models.deepseek_v2 import DeepseekV2Encoder
+from macsa_tpu_torch.models.kimi_linear import KimiLinearEncoder
 from macsa_tpu_torch.models.mde import MultimodalDenoisingEncoder
 from macsa_tpu_torch.models.text_encoder import TextEncoder
 from macsa_tpu_torch.utils.logging import span
@@ -46,17 +48,19 @@ def _fold(x: torch.Tensor) -> torch.Tensor:
 class FeatureExtractor(nn.Module):
     """The reference's text-backbone wrapper (mm_modeling.py:433-446), which
     holds the HF model as `cell`: hence the `encoder.bert.cell.*` keys.
-    The backbone follows the config's type: RoBERTa (`TextEncoder`) or
-    DeepSeek-V2 (`DeepseekV2Encoder`, with its projection into the fusion's
-    width `out_dim`)."""
+    The backbone follows the config's type: RoBERTa (`TextEncoder`),
+    DeepSeek-V2 (`DeepseekV2Encoder`) or Kimi Linear (`KimiLinearEncoder`),
+    the last two with their projection into the fusion's width `out_dim`."""
 
-    def __init__(self, config: Union[TextEncoderConfig, DeepseekV2Config], device=None,
-                 embedding_table: Optional[nn.Parameter] = None, out_dim: int = 768):
+    def __init__(self, config: Union[TextEncoderConfig, DeepseekV2Config, KimiLinearConfig],
+                 device=None, embedding_table: Optional[nn.Parameter] = None,
+                 out_dim: int = 768):
         super().__init__()
-        if isinstance(config, DeepseekV2Config):
+        llm = {DeepseekV2Config: DeepseekV2Encoder, KimiLinearConfig: KimiLinearEncoder}
+        if type(config) in llm:
             if embedding_table is not None:
-                raise ValueError("a DeepSeek-V2 backbone shares no token table")
-            self.cell = DeepseekV2Encoder(config, out_dim, device=device)
+                raise ValueError(f"a {type(config).__name__} backbone shares no token table")
+            self.cell = llm[type(config)](config, out_dim, device=device)
         else:
             self.cell = TextEncoder(config, device=device, embedding_table=embedding_table)
 

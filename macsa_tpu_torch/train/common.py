@@ -24,7 +24,7 @@ from typing import Any, Dict, Iterator, List, Optional, Union
 import numpy as np
 import torch
 
-from macsa_tpu_torch.config import DeepseekV2Config, TextEncoderConfig
+from macsa_tpu_torch.config import DeepseekV2Config, KimiLinearConfig, TextEncoderConfig
 from macsa_tpu_torch.data.images import roi_boxes_from_csv
 from macsa_tpu_torch.data.text_preprocess import TextNormalize, convert_unicode
 from macsa_tpu_torch.ops import cuda_lib
@@ -199,17 +199,19 @@ def text_config_from_hf(hf_config: Dict[str, Any], dtype: str = "float32") -> Te
 
 def build_text_config(pretrained_path: Optional[str], dtype: str = "bfloat16",
                       fused_attention: bool = False
-                      ) -> Union[TextEncoderConfig, DeepseekV2Config]:
+                      ) -> Union[TextEncoderConfig, DeepseekV2Config, KimiLinearConfig]:
     """The backbone's config from a model directory's `config.json`:
     `DeepseekV2Config` (this process the rank-0 share of an 8-way expert
     parallel deployment, `DeepseekV2Config`'s defaults) where it says
-    `model_type: deepseek_v2`, else a RoBERTa `TextEncoderConfig`; the
-    ViSoBERT defaults without a file."""
+    `model_type: deepseek_v2`, `KimiLinearConfig` (the rank-0 share of a
+    32-way one) where it says `kimi_linear`, else a RoBERTa
+    `TextEncoderConfig`; the ViSoBERT defaults without a file."""
     if pretrained_path and os.path.exists(os.path.join(pretrained_path, "config.json")):
         with open(os.path.join(pretrained_path, "config.json")) as f:
             hf = json.load(f)
-        if hf.get("model_type") == "deepseek_v2":
-            return DeepseekV2Config.from_hf(hf, dtype=dtype)
+        llm = {"deepseek_v2": DeepseekV2Config, "kimi_linear": KimiLinearConfig}
+        if hf.get("model_type") in llm:
+            return llm[hf["model_type"]].from_hf(hf, dtype=dtype)
         cfg = text_config_from_hf(hf, dtype=dtype)
     else:
         cfg = TextEncoderConfig(dtype=dtype)

@@ -80,11 +80,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--pretrained_hf_model", type=str, default="uitnlp/visobert",
                    help="local model directory: its config.json picks the text backbone "
-                        "(RoBERTa, or DeepSeek-V2 where model_type is deepseek_v2: this "
+                        "(RoBERTa; DeepSeek-V2 where model_type is deepseek_v2: this "
                         "process then holds rank 0's 8 of every MoE layer's routed experts, "
-                        "as in an 8-way expert-parallel deployment), its tokenizer and "
-                        "pytorch_model.bin its vocabulary and weights.  DeepSeek-V2's "
-                        "published weights (safetensors) and tokenizer are not read yet: "
+                        "as in an 8-way expert-parallel deployment; Kimi Linear where it is "
+                        "kimi_linear: rank 0's 8 of 256, 32-way), its tokenizer and "
+                        "pytorch_model.bin its vocabulary and weights.  The MoE models' "
+                        "published weights (safetensors) and tokenizers are not read yet: "
                         "the backbone keeps its random init")
     p.add_argument("--resnet_weights", type=str, default=None,
                    help="torchvision resnet152 state-dict file")

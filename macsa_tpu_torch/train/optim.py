@@ -3,8 +3,10 @@
 The reference recipe (run_multimodal_fcmf.py:247-314):
 * AdamW with a no-decay group for biases and normalization weights,
   decided by module type as the JAX package decides by leaf name (`bias`,
-  `out_bias`, `scale`): any bias, and the weight of any `LayerNormTF`,
-  `FrozenBatchNorm` or DeepSeek-V2 `RMSNorm`, whatever the module is called,
+  `out_bias`, `scale`): any bias, KDA's `A_log` and `dt_bias`, and the
+  weight of any `LayerNormTF`, `FrozenBatchNorm` or DeepSeek-V2 `RMSNorm`
+  (Kimi Linear's norms and KDA's gated output norm too), whatever the
+  module is called,
 * dual learning rates: the classifier head (`classifier`, `text_pooler`)
   gets `classifier_head_learning_rate`, the rest the encoder rate,
 * HF-style linear warmup, counted in optimizer updates,
@@ -46,7 +48,9 @@ from macsa_tpu_torch.parallel.mesh import all_reduce_gradients
 from macsa_tpu_torch.utils.logging import span
 
 Schedule = Callable[[int], float]
-NO_DECAY_LEAVES = ("bias", "out_bias")  # run_multimodal_fcmf.py:249
+# run_multimodal_fcmf.py:249; KDA's decay parameters, as flash-linear-attention
+# marks them (`_no_weight_decay`)
+NO_DECAY_LEAVES = ("bias", "out_bias", "A_log", "dt_bias")
 NORM_MODULES = (LayerNormTF, FrozenBatchNorm, RMSNorm)  # their `weight` is JAX's `scale`
 HEAD_KEYWORDS = ("classifier", "text_pooler")  # run_multimodal_fcmf.py:252-286
 
@@ -65,8 +69,9 @@ def linear_warmup_schedule(base_lr: float, warmup_steps: int, total_steps: int) 
 
 
 def no_decay_names(model: nn.Module) -> set:
-    """Names of the parameters that take no weight decay: every `bias` and
-    `out_bias`, and the `weight` of every normalization module."""
+    """Names of the parameters that take no weight decay: every `bias`,
+    `out_bias`, `A_log` and `dt_bias`, and the `weight` of every
+    normalization module."""
     names = set()
     for prefix, module in model.named_modules():
         for leaf, _ in module.named_parameters(recurse=False):
