@@ -1060,6 +1060,82 @@ def serving_batch(dev, cfg):
     return batch
 
 
+def kda_backward_work(forward: dict, tokens: int, d: int) -> dict:
+    """The KDA core's backward: the gradient's own work, twice the forward's
+    products (each product's two gradient products); q, k, v and do read in
+    bf16, g and beta in f32, dq, dk, dv written in bf16, dg and dbeta in f32,
+    each once (`tokens` rows of a head, head width `d`).  `KDACore.backward`
+    also computes the forward's chunk products again: `flop_with_recompute`."""
+    return {"flop": 2 * forward["flop"], "flop_with_recompute": 3 * forward["flop"],
+            "bytes": tokens * d * (4 * 2 + 4 + 3 * 2 + 4) + tokens * 4 * 2}
+
+
+def phase_kda(dev, cuda_lib) -> dict:
+    """The chunked KDA core's kernels (`csrc/kda_core.cu`, through
+    `ops/kda.py` `forward_kernels` and `backward_kernels`) at the
+    Kimi-Linear cell's shape, [48, 170, 32, 128] (q, k, v, o, do bf16; g,
+    beta f32): o, dq, dk, dv, dg, dbeta held against the plain versions
+    (`subchunk_kda`, `chunk_kda_backward`) on the same inputs, each as its
+    largest gap over its largest value (bf16 outputs within 1e-2, f32 ones
+    within 1e-4, the card tests' tolerances); the forward and the backward
+    against their bounds (`flops/kimi_linear.kda_core`, `kda_backward_work`;
+    f32 products on the CUDA cores, as the kernels take them) and the plain
+    `chunk_kda` (autograd through it for the backward: the mixer's
+    recomputation and autograd's pass, as the plain path runs it)."""
+    from macsa_tpu_torch.ops import kda
+    from port_bench.flops import kimi_linear as kimi_flops
+
+    with open(os.path.join(REPO, "port_bench", "configs", "fcmf_kimi_linear_48b_a3b.json")) as f:
+        cfg = json.load(f)
+    b, l, h, d = 48, 170, 32, 128
+    gen = torch.Generator(dev).manual_seed(11)
+    q, k, v, do = (torch.randn(b, l, h, d, device=dev, generator=gen).bfloat16()
+                   for _ in range(4))
+    g = -11 * torch.rand(b, l, h, d, device=dev, generator=gen)
+    beta = torch.rand(b, l, h, device=dev, generator=gen)
+    cuda_lib.reset_launch_counts()
+    o = kda.forward_kernels(q, k, v, g, beta, torch.bfloat16)
+    grads = kda.backward_kernels(q, k, v, g, beta, do)
+    assert dict(cuda_lib.launch_counts) == {"kda_fwd": 1, "kda_bwd": 1}, cuda_lib.launch_counts
+    wants = [kda.subchunk_kda(q, k, v, g, beta, torch.bfloat16),
+             *kda.chunk_kda_backward(q, k, v, g, beta, do)]
+    gaps, tols, errs = {}, {}, {}
+    for name, got, want in zip(("o", "dq", "dk", "dv", "dg", "dbeta"), (o, *grads), wants):
+        assert got.dtype == want.dtype and torch.isfinite(got).all(), name
+        want = want.float()
+        errs[name] = float((got.float() - want).abs().max())
+        gaps[name] = errs[name] / float(want.abs().max())
+        tols[name] = 1e-2 if got.dtype == torch.bfloat16 else 1e-4
+    del o, grads, wants
+    bad = {n: gaps[n] for n in gaps if not gaps[n] < tols[n]}
+    assert not bad, f"KDA kernels off the plain versions: {bad} (tolerances {tols})"
+    fwd_work = kimi_flops.kda_core(b, l, cfg, 2)
+    bwd_work = kda_backward_work(fwd_work, b * l * h, d)
+    fwd_ms = cuda_ms(lambda: kda.forward_kernels(q, k, v, g, beta, torch.bfloat16))
+    bwd_ms = cuda_ms(lambda: kda.backward_kernels(q, k, v, g, beta, do))
+
+    def plain_both():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, g, beta)]
+        kda.chunk_kda(*leaves, torch.bfloat16).backward(do)
+
+    plain_fwd = cuda_ms(lambda: kda.chunk_kda(q, k, v, g, beta, torch.bfloat16), 5, 1)
+    plain_both_ms = cuda_ms(plain_both, 5, 1)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    kda.backward_kernels(q, k, v, g, beta, do)
+    torch.cuda.synchronize(dev)
+    out = {"shape": [b, l, h, d], "max_abs_err": max(errs.values()), "gaps": gaps,
+           "forward": {"ms": fwd_ms, "plain_ms": plain_fwd, **bound(fwd_work, torch.float32)},
+           "backward": {"ms": bwd_ms, "plain_ms": plain_both_ms - plain_fwd,
+                        "scratch_peak_mb": (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20,
+                        **bound(bwd_work, torch.float32),
+                        "bound_ms_with_recompute": bound({**bwd_work, "flop": bwd_work[
+                            "flop_with_recompute"]}, torch.float32)["bound_ms"]}}
+    print("kda: " + json.dumps(out))
+    return out
+
+
 def phase_slice(dev, cuda_lib, config, layers, fcmf, resnet, steps, image_prep):
     """The serving forward at full width through the kernels (K1, K2, K5),
     once in f32 and once in bf16, against the plain path.  Its speed is
@@ -3300,6 +3376,7 @@ def main() -> int:
     k4, k4_launches = run(phase_k4, dev, cuda_lib, fr)
     k5 = run(phase_k5, dev, cuda_lib, layers, resnet, fused_backbone, fr)
     k45_simt = run(phase_k45_simt_f32, dev, cuda_lib, fr)
+    kda_core = run(phase_kda, dev, cuda_lib)
     launches = run(phase_slice, dev, cuda_lib, *model_mods)
     fused_launches = run(phase_fused, dev, cuda_lib, *model_mods, fused_backbone)
     train_launches = run(phase_train, dev, cuda_lib, *model_mods, optim, train_state)
@@ -3426,6 +3503,13 @@ def main() -> int:
               max([r["err"] for r in k5.values()] + [k45_simt["k5"]["max_abs_err"]]),
               k5[(3, bf16)]),
     ]
+    for which in ("forward", "backward"):  # no phase past phase_kda runs the KDA core
+        kernels.append({"name": f"kda_{which}", "route": "cuda",
+                        "source": "macsa_tpu_torch/csrc/kda_core.cu", "replaces": None,
+                        "launches": 1, "max_abs_err": kda_core["max_abs_err"],
+                        "max_gap": max(kda_core["gaps"].values()), "shape": kda_core["shape"],
+                        **{key: kda_core[which][key] for key in ("ms", "plain_ms", "bound_ms",
+                                                                  "bound_by")}})
     f32_170 = (k1[("-10000", torch.float32)], k1_bwd[("-10000", torch.float32, 0.0)])
     for kernel, which, f32_report in zip(kernels[:2], ("fwd", "bwd"), f32_170):
         kernel["at_256_rows"] = at_shape(which, k1_baselines, 256, 768)

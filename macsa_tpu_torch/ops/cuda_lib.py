@@ -82,7 +82,14 @@ _SIGNATURES = {
     "macsa_fused_bottleneck_tf32x3": [_P] * 12 + [_I] * 6 + [_P],
     # w1, w2, w3, planes, c, f, stream
     "macsa_tf32_weight_planes": [_P, _P, _P, _P, _I, _I, _P],
+    # the chunked KDA core (csrc/kda_core.cu): b, l, h, backward -> floats of scratch
+    "macsa_kda_scratch_floats": [_I, _I, _I, _I],
+    # q, k, v, g, beta, o, scratch, b, l, h, in_bf16, out_bf16, stream
+    "macsa_kda_fwd": [_P] * 7 + [_I] * 5 + [_P],
+    # q, k, v, g, beta, do, dq, dk, dv, dg, dbeta, scratch, b, l, h, in_bf16, out_bf16, stream
+    "macsa_kda_bwd": [_P] * 12 + [_I] * 5 + [_P],
 }
+_RESTYPES = {"macsa_kda_scratch_floats": _LL}  # the rest return a cudaError
 
 
 def reset_launch_counts() -> None:
@@ -161,7 +168,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

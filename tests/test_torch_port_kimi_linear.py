@@ -28,7 +28,7 @@ import torch
 from macsa_tpu_torch.config import KimiLinearConfig
 from macsa_tpu_torch.models import deepseek_v2 as ds_port
 from macsa_tpu_torch.models import kimi_linear as port
-from macsa_tpu_torch.ops import kda
+from macsa_tpu_torch.ops import cuda_lib, kda
 from macsa_tpu_torch.train import common, optim
 from port_bench.entries import finetune_kimi_step
 from port_bench.lib import traffic
@@ -113,6 +113,66 @@ def test_chunked_core_matches_the_recurrence_forward_and_gradients(length):
     for a, b, name in zip(leaves, wide, "q k v g beta".split()):
         assert torch.isfinite(a.grad).all(), name
         torch.testing.assert_close(a.grad.double(), b.grad, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def steep_inputs(b, length, h=2, d=8, seed=0):
+    """`core_inputs` with decays of -30 to -200 a step on positions 3-7 and
+    40-43 (3 and more in a row, across a sub-chunk's start)."""
+    q, k, v, g, beta = core_inputs(b, length, h, d, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    for at in (slice(3, 8), slice(40, 44)):
+        part = g[:, at]
+        part.copy_(-30 - 170 * torch.rand(part.shape, generator=gen))
+    return q, k, v, g, beta
+
+
+@pytest.mark.parametrize("decays", ["seeded", "steep"])
+@pytest.mark.parametrize("length", [1, 15, 16, 17, 63, 64, 65, 170])
+def test_the_hand_derived_backward_matches_autograd(length, decays):
+    """`chunk_kda_backward` (the kernels' sweep and sub-chunk factoring,
+    plain) against autograd through the f64 recurrence, both in f64 (the
+    same function: 1e-10), and, where the decays are within
+    `chunk_kda`'s envelope, against autograd through `chunk_kda` in f32
+    (two f32 orders of the same sums: the f32 tolerance of
+    `test_chunked_core_matches_the_recurrence_forward_and_gradients`).  The
+    plain sub-chunk forward `subchunk_kda` against the recurrence too: it
+    is exact for the steep decays, where exp(-G) over 3 positions
+    overflows f32."""
+    made = core_inputs(2, length) if decays == "seeded" else steep_inputs(2, length)
+    wide = [t.double().clone().requires_grad_() for t in made]
+    want = ref.kda_recurrence(kda.l2norm(wide[0]) * 8 ** -0.5, kda.l2norm(wide[1]), *wide[2:])
+    dy = torch.randn(want.shape, generator=torch.Generator().manual_seed(9), dtype=torch.float64)
+    want.backward(dy)
+    got = kda.subchunk_kda(*[t.double() for t in made], torch.float64)
+    torch.testing.assert_close(got, want.detach(), rtol=1e-10, atol=1e-12)
+    grads = kda.chunk_kda_backward(*[t.double() for t in made], dy)
+    names = "q k v g beta".split()
+    for a, w, name in zip(grads, wide, names):
+        torch.testing.assert_close(a, w.grad, rtol=1e-10, atol=1e-12, msg=name)
+    if decays == "steep":
+        if length > 5:
+            assert torch.isinf(torch.exp(-made[3][:, 3:6].sum(1))).any()
+        return
+    leaves = [t.clone().requires_grad_() for t in made]
+    kda.chunk_kda(*leaves, torch.float32).backward(dy.float())
+    for a, w, name in zip(kda.chunk_kda_backward(*made, dy.float()), leaves, names):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a, w.grad, rtol=1e-4, atol=1e-5, msg=name)
+
+
+def test_the_core_function_runs_the_plain_versions_on_the_cpu():
+    """`KDACore` on CPU tensors: `subchunk_kda` forward, `chunk_kda_backward`
+    (its gradient) backward; no kernel launch."""
+    made = core_inputs(2, 37)
+    leaves = [t.clone().requires_grad_() for t in made]
+    dy = torch.randn(2, 37, 2, 8, generator=torch.Generator().manual_seed(3))
+    cuda_lib.reset_launch_counts()
+    out = kda.KDACore.apply(*leaves, torch.float32)
+    out.backward(dy)
+    assert not cuda_lib.launch_counts
+    torch.testing.assert_close(out, kda.subchunk_kda(*made, torch.float32), rtol=0, atol=0)
+    for a, w in zip(kda.chunk_kda_backward(*made, dy), leaves):
+        torch.testing.assert_close(w.grad, a, rtol=0, atol=0)
 
 
 def test_right_padding_leaves_the_real_positions_as_they_are():
